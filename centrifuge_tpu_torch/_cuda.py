@@ -30,10 +30,17 @@ _RANK = [_P, _P, _I64, _P, _P, _P, _I64, _P]
 _SEARCH = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
            _I64, _I32, _I32, _I32, _I32, _I32, _P]
 _FTAB12 = [_P, _P, _I64, _P, _P, _P, _P, _P, _P]
+_RESOLVE = [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _P,
+            _I64, _P]
+_PRESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
+             _I64, _P]
 SIGNATURES = {
     "rank": {"fm_rank_narrow": _RANK, "fm_rank_wide": _RANK},
     "search": {"fm_search_narrow": _SEARCH, "fm_search_wide": _SEARCH},
     "ftab12": {"fm_ftab12_narrow": _FTAB12, "fm_ftab12_wide": _FTAB12},
+    "resolve": {"fm_resolve_narrow": _RESOLVE, "fm_resolve_wide": _RESOLVE},
+    "presolve": {"fm_presolve_narrow": _PRESOLVE,
+                 "fm_presolve_wide": _PRESOLVE},
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

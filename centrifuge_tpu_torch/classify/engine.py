@@ -11,6 +11,13 @@ emission order as [h_top, h_bot, h_off, h_len] (an empty hit has
 top == bot == -1, unused slots hold (-1, -1, 0, 0)), the hit count and
 the summed length of hits of at least min_hitlen.
 
+K5, the presolve, predicts per mate the SA rows the classifier will ask
+for, from the search's first-pass hit buffers, and compacts them into
+PRESOLVE_ROWS_PER_MATE slots per mate; K3 (ops/fm_torch.resolve_rows)
+resolves them on the same stream. On a CUDA device these are the
+kernels csrc/presolve.cu and csrc/resolve.cu; on the CPU the plain
+versions. Both give the JAX package's batched_search_presolve outputs.
+
 The host wrapper (BatchSearchEngine) keeps the interface the pipeline
 and native/engine.py call: search_async / search_fetch / search_collect,
 search, search_first_hits, and the stats / dev_lock / lane_bucket_lo /
@@ -26,10 +33,12 @@ import numpy as np
 import torch
 
 from .. import _cuda
-from ..ops.fm_torch import DeviceFMIndex
+from ..ops.fm_torch import (RESOLVE_MAX_STEPS, DeviceFMIndex, resolve_rows,
+                            resolve_rows_plain)
 from ..ops.rank import bwt_at_plain, rank_plain, word_counts
 
 FTAB_CHARS = 10
+PRESOLVE_ROWS_PER_MATE = 4   # flat presolve slots per mate
 
 
 def _bucket(n: int, lo: int = 256) -> int:
@@ -279,20 +288,155 @@ def search_lanes(fm: DeviceFMIndex, reads: torch.Tensor,
     return outs
 
 
+# ---- K5: the presolve ----
+
+def presolve_rk(khits: int) -> int:
+    """Row slots per mate for the pick (the JAX engine's rule)."""
+    return 16 if khits <= 5 else min(128, 4 * khits)
+
+
+def presolve_pick_rows_plain(h_top: torch.Tensor, h_bot: torch.Tensor,
+                             h_len: torch.Tensor, khits: int, ihits: int,
+                             min_hitlen: int, rk: int):
+    """Plain PyTorch pick (the JAX package's classify/engine.py
+    _presolve_pick_rows): per mate m, lanes 2m and 2m+1 (its fw and rc
+    strands), the SA rows the classifier is predicted to resolve
+    (classifier.h:429-479): the strand choice, the max_genome_hit_size
+    budget, the resolution gate, hits in the stable order of (size asc,
+    len desc) with fw before rc, the cumulative cap. Returns (rows [M, rk]
+    in the row dtype, unused slots 0; nrows int32 [M])."""
+    L, mh = h_top.shape
+    M = L // 2
+    t = h_top.reshape(M, 2, mh).to(torch.int64)
+    b = h_bot.reshape(M, 2, mh).to(torch.int64)
+    ln = h_len.reshape(M, 2, mh).to(torch.int64)
+    size = torch.where(t >= 0, b - t, 0)
+    scoring = (ln >= min_hitlen) & (size != 0)
+    sc = torch.where(scoring, (ln - 15) * (ln - 15), 0).sum(dim=2)
+    mx = torch.where(scoring, ln, 0).amax(dim=2)
+    s0, s1 = sc[:, 0], sc[:, 1]
+    fw = (s0 > s1) | ((s0 == s1) & (mx[:, 0] > mx[:, 1]))
+    rc = (s1 > s0) | ((s0 == s1) & (mx[:, 1] > mx[:, 0]))
+    both = ~fw & ~rc
+    use = torch.stack([fw | both, rc | both], dim=1)
+    maxsz = torch.where(scoring & use[:, :, None], size, 0).amax(dim=(1, 2))
+    mghs = torch.where(maxsz > khits, maxsz + use.sum(dim=1) * khits, khits)
+    nelt = torch.minimum(size, mghs[:, None, None])
+    gate = (ln > min_hitlen) & (size != 0) & use[:, :, None] & (nelt <= ihits)
+    key = torch.where(gate, size.clamp(max=1 << 18) * 4096 - ln,
+                      torch.iinfo(torch.int64).max).reshape(M, 2 * mh)
+    _, order = torch.sort(key, dim=1, stable=True)
+    tops = t.reshape(M, 2 * mh).gather(1, order)
+    nelt_s = torch.where(gate, nelt, 0).reshape(M, 2 * mh).gather(1, order)
+    prev = nelt_s.cumsum(dim=1) - nelt_s
+    nelt_t = torch.where((nelt_s > 0) & (prev < mghs[:, None]), nelt_s, 0)
+    start = (nelt_t.cumsum(dim=1) - nelt_t)[:, None, :]
+    slots = torch.arange(rk, device=t.device)[None, :, None]
+    in_range = (slots >= start) & (slots < start + nelt_t[:, None, :])
+    rows = torch.where(in_range, tops[:, None, :] + (slots - start),
+                       0).sum(dim=2)
+    nrows = nelt_t.sum(dim=1).clamp(max=rk).to(torch.int32)
+    return rows.to(h_top.dtype), nrows
+
+
+def presolve_compact_plain(rows: torch.Tensor,
+                           nrows: torch.Tensor) -> torch.Tensor:
+    """The per-mate row lists compacted into PRESOLVE_ROWS_PER_MATE * M
+    flat slots (batched_search_presolve's cumsum + searchsorted +
+    gather): mate after mate, nrows[m] rows each; the slots past the last
+    row hold 0, and rows past the last slot are dropped."""
+    M, rk = rows.shape
+    n = torch.arange(PRESOLVE_ROWS_PER_MATE * M, device=rows.device)
+    cnt = nrows.to(torch.int64)
+    doffs = torch.cumsum(cnt, 0) - cnt
+    mate = torch.searchsorted(doffs, n, right=True) - 1
+    slot = n - doffs[mate]
+    src = mate * rk + slot.clamp(0, rk - 1)
+    return torch.where(slot < cnt[mate], rows.reshape(-1)[src], 0)
+
+
+def presolve_rows_plain(h_top, h_bot, h_len, khits: int, ihits: int,
+                        min_hitlen: int, rk: int) -> torch.Tensor:
+    """Plain PyTorch K5: the pick, then the compaction."""
+    return presolve_compact_plain(*presolve_pick_rows_plain(
+        h_top, h_bot, h_len, khits, ihits, min_hitlen, rk))
+
+
+def presolve_rows(h_top: torch.Tensor, h_bot: torch.Tensor,
+                  h_len: torch.Tensor, khits: int, ihits: int,
+                  min_hitlen: int, rk: int) -> torch.Tensor:
+    """K5 over a batch's first-pass hit buffers [L, mh] (L even) -> the
+    flat presolve rows [PRESOLVE_ROWS_PER_MATE * L / 2] in the row dtype:
+    the CUDA kernels for CUDA tensors (csrc/presolve.cu: pick, scan,
+    compaction on one stream), the plain version for CPU tensors."""
+    args = (khits, ihits, min_hitlen, rk)
+    if not h_top.is_cuda:
+        return presolve_rows_plain(h_top, h_bot, h_len, *args)
+    _cuda.require_cuda(h_top, h_bot, h_len)
+    L, mh = h_top.shape
+    if L % 2 or h_top.dtype not in (torch.int32, torch.int64) \
+            or h_bot.dtype != h_top.dtype or h_len.dtype != torch.int32 \
+            or h_bot.shape != (L, mh) or h_len.shape != (L, mh):
+        raise ValueError("hit buffers must be [L, mh] with L even: h_top "
+                         "and h_bot in the row dtype, h_len int32")
+    M = L // 2
+    dev = h_top.device
+    idt = h_top.dtype
+    rows = torch.empty((M, rk), dtype=idt, device=dev)
+    nrows = torch.empty(M, dtype=torch.int32, device=dev)
+    doffs = torch.empty(M, dtype=torch.int32, device=dev)
+    flat = torch.empty(PRESOLVE_ROWS_PER_MATE * M, dtype=idt, device=dev)
+    if M == 0:
+        return flat
+    lib = _cuda.lib("presolve")
+    fn = lib.fm_presolve_wide if idt == torch.int64 \
+        else lib.fm_presolve_narrow
+    rc = fn(h_top.data_ptr(), h_bot.data_ptr(), h_len.data_ptr(), M, mh,
+            *args, rows.data_ptr(), nrows.data_ptr(), doffs.data_ptr(),
+            flat.data_ptr(), flat.numel(), _cuda.stream_ptr(dev))
+    _cuda.check(rc, "presolve kernel")
+    _cuda.LAUNCHES["presolve"] += 1
+    return flat
+
+
+def presolve_plain(fm: DeviceFMIndex, h_top, h_bot, h_len, khits: int,
+                   ihits: int, min_hitlen: int, rk: int,
+                   max_steps: int = RESOLVE_MAX_STEPS):
+    """Plain PyTorch presolve: (flat rows, their int32 values), the
+    compaction and the walk of batched_search_presolve."""
+    flat = presolve_rows_plain(h_top, h_bot, h_len, khits, ihits,
+                               min_hitlen, rk)
+    return flat, resolve_rows_plain(fm, flat, max_steps)
+
+
+def presolve_lanes(fm: DeviceFMIndex, h_top, h_bot, h_len, khits: int,
+                   ihits: int, min_hitlen: int, rk: int,
+                   max_steps: int = RESOLVE_MAX_STEPS):
+    """The presolve of one dispatch: K5's flat rows, then K3 on them, on
+    the current stream (CUDA tensors), or the plain versions (CPU
+    tensors). Returns (flat rows, int32 values)."""
+    flat = presolve_rows(h_top, h_bot, h_len, khits, ihits, min_hitlen, rk)
+    return flat, resolve_rows(fm, flat, max_steps)
+
+
 class SearchHandle:
     """One dispatched search: the device outputs and their pinned host
-    copies in flight (CUDA), or the finished arrays (CPU)."""
+    copies in flight (CUDA), or the finished arrays (CPU). With a
+    presolve, the flat rows and their values travel behind the same
+    event."""
 
-    def __init__(self, rseqp, lengths, mh, lmax, nlanes):
+    def __init__(self, rseqp, lengths, mh, lmax, nlanes, presolve=None):
         self.rseqp = rseqp
         self.lengths = lengths
         self.mh = mh
         self.lmax = lmax
         self.nlanes = nlanes
+        self.presolve = presolve  # (khits, ihits, rk), or None
         self.device_out = None   # device tensors kept alive until fetched
         self.host_out = None     # pinned host tensors (CUDA) / CPU tensors
         self.event = None
         self.arrays = None       # the 6 numpy arrays, once fetched
+        self.prefetch = None     # (flat rows, values) numpy, once fetched
 
     @property
     def fetched(self) -> bool:
@@ -322,9 +466,9 @@ class BatchSearchEngine:
         self.lmax_lo = 32
         self.stats = {"upload_bytes": 0, "download_bytes": 0,
                       "ext_searches": 0, "ext_lanes": 0}
-        # device calls come from the main thread only (the pipeline's
-        # tail worker never touches the device); the lock keeps direct
-        # multi-threaded callers serialized
+        # every launch on the engine's stream holds this lock: the main
+        # thread's searches, and (without a host resolver) the tail
+        # worker's first-hit searches and device resolves
         self.dev_lock = threading.RLock()
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
@@ -389,11 +533,22 @@ class BatchSearchEngine:
                 self._deep(handle.lmax))
         self.stats["upload_bytes"] += (handle.rseqp.nbytes
                                        + handle.lengths.nbytes)
+
+        def presolve(out):
+            # from the first-pass buffers, as the JAX dispatch does: a
+            # lane past mh hits has overwritten its last slot there
+            if handle.presolve is None:
+                return []
+            khits, ihits, rk = handle.presolve
+            return list(presolve_lanes(fm, out[0], out[1], out[3], khits,
+                                       ihits, self.min_hitlen, rk))
+
         if self._stream is None:
-            handle.host_out = search_lanes(
+            out = search_lanes(
                 fm, torch.from_numpy(handle.rseqp),
                 torch.from_numpy(handle.lengths), torch.from_numpy(start),
                 *args)
+            handle.host_out = out + presolve(out)
             return handle
         with self.dev_lock, torch.cuda.stream(self._stream):
             dev = self.device
@@ -402,6 +557,7 @@ class BatchSearchEngine:
                                                        non_blocking=True)
             st = torch.from_numpy(start).to(dev, non_blocking=True)
             out = search_lanes(fm, reads, lens, st, *args)
+            out = out + presolve(out)
             host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                     for o in out]
             for h, o in zip(host, out):
@@ -425,38 +581,50 @@ class BatchSearchEngine:
         h = SearchHandle(rseqp, lengths, max_hits, lmax, rseqp.shape[0])
         return self._wait(self._launch(h, start, first_hit_only))
 
-    def search_async(self, seqs: List[np.ndarray]) -> SearchHandle:
+    def search_async(self, seqs: List[np.ndarray], presolve: bool = False,
+                     khits: int = 5, ihits: int = 200) -> SearchHandle:
         """Pack and launch the search of all lanes on the engine's stream,
         with the device->host copy of the outputs queued behind it;
         returns at once with a handle for search_fetch/search_collect.
-        (The JAX engine's in-dispatch presolve is not ported: rows resolve
-        on the host.)"""
+
+        With presolve=True the same dispatch also resolves, speculatively,
+        the SA rows the assignment pass is predicted to ask for (K5, then
+        K3); search_collect then returns them as the (rows, values)
+        prefetch. Lanes (2m, 2m+1) must be one mate's two strands."""
         L = len(seqs)
         maxlen = max((len(s) for s in seqs), default=1)
         lmax = _bucket_len(maxlen, lo=self.lmax_lo)
         nlanes = _bucket(L, lo=self.lane_bucket_lo)
         rseqp, lengths = self.pack_transport(seqs, lmax, nlanes)
         mh = min(self.FIRST_MAX_HITS, lmax)
-        h = SearchHandle(rseqp, lengths, mh, lmax, nlanes)
+        h = SearchHandle(rseqp, lengths, mh, lmax, nlanes, presolve=(
+            khits, ihits, presolve_rk(khits)) if presolve else None)
         return self._launch(h, np.zeros(nlanes, dtype=np.int32), False)
 
     def search_fetch(self, handle: SearchHandle) -> SearchHandle:
         """Wait for the handle's outputs and re-run overflowing lanes: the
-        only device-facing step of a collect, so the pipeline calls it on
-        the main thread. Idempotent."""
+        pipeline calls it on the main thread, so the tail worker gets
+        host arrays. Idempotent."""
         if not handle.fetched:
             out = self._wait(handle)
+            if handle.presolve is not None:
+                handle.prefetch = (out[6], out[7])
             handle.arrays = self._handle_overflow(
-                out, handle.rseqp, handle.lengths, handle.mh, handle.lmax,
-                handle.nlanes)
+                out[:6], handle.rseqp, handle.lengths, handle.mh,
+                handle.lmax, handle.nlanes)
         return handle
 
     def search_collect(self, handle: SearchHandle, L: int):
-        """The 6 per-lane arrays of the first L lanes, and no prefetch
-        (presolve is not ported): ([h_top, h_bot, h_off, h_len, nhits,
-        sums], None)."""
+        """([h_top, h_bot, h_off, h_len, nhits, sums] of the first L lanes,
+        prefetch): prefetch is (rows, values) sorted by row (a stable
+        sort) when the dispatch presolved, else None."""
         handle = self.search_fetch(handle)
-        return [a[:L] for a in handle.arrays], None
+        prefetch = None
+        if handle.prefetch is not None:
+            rows, tidx = handle.prefetch
+            order = np.argsort(rows, kind="stable")
+            prefetch = (rows[order], tidx[order])
+        return [a[:L] for a in handle.arrays], prefetch
 
     def search(self, seqs: List[np.ndarray]) -> List[np.ndarray]:
         """Full scan of each sequence; returns the per-lane hit arrays."""

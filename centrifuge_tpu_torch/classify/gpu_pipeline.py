@@ -3,14 +3,21 @@
 Device side: the FM search kernel over all (read, strand) lanes of a
 batch (classify/engine.py, csrc/search.cu) over the index built at load
 (ops/fm_torch.py, with the depth-12 ftab kernels on large indexes). Host
-side: the native assignment engine (native/engine.py) with SA rows
-resolved and extension misses searched by the native host walk
-(native/fmwalk.py), then row formatting and species metrics. Per batch:
+side: the native assignment engine (native/engine.py), then row
+formatting and species metrics. Per batch:
 
   1. one batched full-scan search over all (read, strand) lanes
-  2. the cross-strand extension fixpoint, searched on the host
-  3. one batched host SA resolution for all candidate ranges
+  2. the cross-strand extension fixpoint
+  3. one batched SA resolution for all candidate ranges
   4. host assignment + row formatting (byte parity with the oracle)
+
+Two ways to resolve, with the same rows out. host_resolve=True (the
+default): the native host walk (native/fmwalk.py) resolves SA rows and
+searches extension misses. host_resolve=False, or when the host walk
+cannot be built: the search dispatch also presolves the predicted rows
+on the card (K5 + K3), the tail serves rows from that prefetch, resolves
+the rest with the device resolver (K3) and searches extension misses
+with the engine's first-hit search (K1).
 
 The JAX package's counterpart is classify/tpu_pipeline.py, single-device
 branch; its mesh and multi-host paths are not part of this package.
@@ -24,7 +31,7 @@ import numpy as np
 
 from ..index.cf_io import CFIndex
 from ..io.fastx import ReadRec
-from ..ops.fm_torch import DeviceFMIndex
+from ..ops.fm_torch import DeviceFMIndex, make_resolver
 from ..utils.rng import LCG, gen_read_seed, gen_read_seeds_batch
 from .algo import (OFF_MASK, Classifier, PartialHit, StrandState,
                    extend_and_filter, select_results)
@@ -51,7 +58,8 @@ def _states_from_arrays(h_top, h_bot, h_off, h_len, nhits, sums, lane,
 
 class GPUClassificationPipeline:
     """Classify batches of reads with the GPU search and the native host
-    tail."""
+    tail; SA rows resolve on the host or on the card
+    (PipelineConfig.host_resolve)."""
 
     def __init__(self, idx: CFIndex, cfg: Optional[PipelineConfig] = None,
                  device="cuda", wide=None,
@@ -60,26 +68,27 @@ class GPUClassificationPipeline:
         "cpu" runs the plain PyTorch versions). A prebuilt `dfm` skips the
         packing and upload, so several pipelines can share one index."""
         cfg = cfg or PipelineConfig()
-        if not cfg.host_resolve:
-            raise NotImplementedError(
-                "SA resolution on the device is not ported yet: the GPU "
-                "pipeline resolves rows with the native host walk "
-                "(host_resolve=True)")
         if dfm is None:
             dfm = DeviceFMIndex.build(idx, device=device, wide=wide,
-                                      keep_host_blocks=True)
-        if dfm.host_blocks is None:
-            raise ValueError("the host resolver needs the index built with "
-                             "keep_host_blocks=True")
+                                      keep_host_blocks=cfg.host_resolve)
         engine = BatchSearchEngine(dfm, cfg.classifier.min_hitlen)
-        # SA rows resolve on the host (native/fmwalk.cpp); pipelines
-        # sharing a prebuilt dfm share one resolver
-        from ..native.fmwalk import HostResolver
-        hr = getattr(dfm, "_host_resolver", None)
-        if hr is None:
-            hr = HostResolver(dfm.host_blocks, idx, dfm.wide)
-            dfm._host_resolver = hr
-        self._init_with_engine(idx, cfg, engine, hr, dfm=dfm)
+        self._init_with_engine(idx, cfg, engine, make_resolver(dfm),
+                               dfm=dfm)
+        if cfg.host_resolve and dfm.host_blocks is not None:
+            try:
+                from ..native.fmwalk import HostResolver
+                # pipelines sharing a prebuilt dfm share one resolver
+                hr = getattr(dfm, "_host_resolver", None)
+                if hr is None:
+                    hr = HostResolver(dfm.host_blocks, idx, dfm.wide)
+                    dfm._host_resolver = hr
+                self.resolver = hr
+                # rows resolve on the host: no presolve in the dispatch
+                self.presolve = False
+            except (ImportError, OSError, RuntimeError) as e:
+                # the native walk cannot load: keep the device resolver
+                from ..utils.fallback import warn_fallback
+                warn_fallback("fmwalk.cpp (HostResolver)", e)
 
     def _init_with_engine(self, idx, cfg, engine, resolver, dfm=None):
         """Wire the (engine, resolver) pair into the shared host pipeline."""
@@ -88,6 +97,9 @@ class GPUClassificationPipeline:
         self.dfm = dfm
         self.engine = engine
         self.resolver = resolver
+        # the in-dispatch presolve (K5 + K3); off once a host resolver
+        # takes over (__init__)
+        self.presolve = True
         # host-side classifier: algorithm only, no FM oracle needed
         self.classifier = Classifier(idx, None, self.cfg.classifier)
         self.formatter = ResultFormatter(idx, self.cfg)
@@ -283,8 +295,8 @@ class GPUClassificationPipeline:
         host finishes batch N (kernel launches are asynchronous; only
         the fetch blocks). With the native engine, batches run through
         the tail-thread overlap instead (_stream_overlap): the main
-        thread keeps every device call, ONE worker runs the device-free
-        host tail FIFO, so output order and the species state remain
+        thread launches the searches, ONE worker runs the host tail
+        FIFO, so output order and the species state remain
         deterministic."""
         if self.native is not None and self.cfg.threaded_stream:
             yield from self._stream_overlap(batches, paired=False)
@@ -311,12 +323,15 @@ class GPUClassificationPipeline:
     def _stream_overlap(self, batches, paired) -> "Iterator[List[str]]":
         """Tail-thread overlap: the main thread launches every search and
         fetches its outputs (search_fetch waits on the copy's event and
-        re-runs overflowing lanes); the one worker thread runs the
-        device-free host tail, whose extension misses the host walk
-        searches. Steady state per batch ~= max(device compute +
-        transfer, host tail) instead of their sum. Tails run FIFO on one
-        worker, so the native spm accumulation order (byte parity) is
-        unchanged."""
+        re-runs overflowing lanes); the one worker thread runs the host
+        tail. With the host resolver the tail never touches the device;
+        without it the tail launches K3 for the rows the prefetch missed
+        and K1 for extension misses, each under engine.dev_lock (K3 on
+        the resolver's stream, K1 on the engine's) and synchronised
+        before it returns. Steady
+        state per batch ~= max(device compute + transfer, host tail)
+        instead of their sum. Tails run FIFO on one worker, so the
+        native spm accumulation order (byte parity) is unchanged."""
         import time as _t
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
@@ -342,9 +357,8 @@ class GPUClassificationPipeline:
                 fut = item[-2]
                 lane_seqs, lane_map, handle = fut
                 if lane_seqs:
-                    # block on the device transfer here (the main thread
-                    # owns all device calls); the tail worker then only
-                    # reads the fetched host arrays
+                    # block on the device transfer here; the tail worker
+                    # then reads the fetched host arrays
                     t0 = _t.perf_counter()
                     handle = self.engine.search_fetch(handle)
                     self.metrics.collect_wait_secs += _t.perf_counter() - t0
@@ -410,7 +424,11 @@ class GPUClassificationPipeline:
             if tot_m else np.zeros((0, 3), np.int32)
         handle = None
         if lane_seqs:
-            handle = self.engine.search_async(lane_seqs)
+            handle = self.engine.search_async(
+                lane_seqs,
+                presolve=self.native is not None and self.presolve,
+                khits=self.cfg.classifier.khits,
+                ihits=self.classifier.ihits)
         self.metrics.lanes += len(lane_seqs)
         self.metrics.device_dispatches += 1
         m = self.metrics

@@ -66,6 +66,48 @@ void ftab12_all(const void* blocks, const void* fchr, int64_t zoff,
                         (const R*)b1, (uint32_t*)out, idx);
 }
 
+template <typename R>
+void resolve_all(const void* blocks, const void* fchr, int64_t zoff,
+                 const void* offs, int64_t noffs, const void* brows,
+                 const void* brefs, int64_t nb, int32_t offrate,
+                 int32_t narrow, int32_t max_steps, int32_t walk,
+                 const void* rows, void* tidx, int64_t n) {
+  fm::ResolveArgs<R> a;
+  a.blocks = (const uint32_t*)blocks;
+  a.fchr = (const R*)fchr;
+  a.zoff = (R)zoff;
+  a.offs = (const int32_t*)offs;
+  a.noffs = noffs;
+  a.brows = (const R*)brows;
+  a.brefs = (const int32_t*)brefs;
+  a.nb = nb;
+  a.offrate = offrate;
+  a.narrow = narrow;
+  a.max_steps = max_steps;
+  const R* rr = (const R*)rows;
+  int32_t* o = (int32_t*)tidx;
+  for (int64_t i = 0; i < n; ++i)
+    o[i] = walk ? fm::resolve_row<R>(a, rr[i]) : fm::try_offset<R>(a, rr[i]);
+}
+
+template <typename R>
+void pick_all(const void* h_top, const void* h_bot, const void* h_len,
+              int64_t M, int32_t mh, int32_t khits, int32_t ihits,
+              int32_t min_hitlen, int32_t rk, void* rows, void* nrows) {
+  fm::PickArgs<R> a;
+  a.h_top = (const R*)h_top;
+  a.h_bot = (const R*)h_bot;
+  a.h_len = (const int32_t*)h_len;
+  a.mh = mh;
+  a.khits = khits;
+  a.ihits = ihits;
+  a.min_hitlen = min_hitlen;
+  a.rk = rk;
+  a.rows = (R*)rows;
+  a.nrows = (int32_t*)nrows;
+  for (int64_t m = 0; m < M; ++m) fm::pick_mate<R>(a, m);
+}
+
 }  // namespace
 
 #define TWIN(KIND, R)                                                      \
@@ -90,6 +132,22 @@ void ftab12_all(const void* blocks, const void* fchr, int64_t zoff,
       const void* blocks, const void* fchr, int64_t zoff, const void* t0,  \
       const void* b0, const void* t1, const void* b1, void* out) {         \
     ftab12_all<R>(blocks, fchr, zoff, t0, b0, t1, b1, out);                \
+  }                                                                        \
+  /* walk = 0: try_offset only; walk = 1: resolve_row */                   \
+  extern "C" void twin_resolve_##KIND(                                     \
+      const void* blocks, const void* fchr, int64_t zoff, const void* offs, \
+      int64_t noffs, const void* brows, const void* brefs, int64_t nb,     \
+      int32_t offrate, int32_t narrow, int32_t max_steps, int32_t walk,    \
+      const void* rows, void* tidx, int64_t n) {                           \
+    resolve_all<R>(blocks, fchr, zoff, offs, noffs, brows, brefs, nb,      \
+                   offrate, narrow, max_steps, walk, rows, tidx, n);       \
+  }                                                                        \
+  extern "C" void twin_pick_##KIND(                                        \
+      const void* h_top, const void* h_bot, const void* h_len, int64_t M,  \
+      int32_t mh, int32_t khits, int32_t ihits, int32_t min_hitlen,        \
+      int32_t rk, void* rows, void* nrows) {                               \
+    pick_all<R>(h_top, h_bot, h_len, M, mh, khits, ihits, min_hitlen, rk,  \
+                rows, nrows);                                              \
   }
 
 TWIN(narrow, int32_t)

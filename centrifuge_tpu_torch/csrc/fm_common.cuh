@@ -1,5 +1,6 @@
 // Per-lane FM-index arithmetic shared by the CUDA kernels (rank.cu,
-// search.cu, ftab12.cu) and by the host build of the same header that
+// search.cu, ftab12.cu, resolve.cu, presolve.cu) and by the host build
+// of the same header that
 // the CPU tests compile (cpu_twin.cpp). Every function is
 // __host__ __device__, so the arithmetic the card runs is the arithmetic
 // the tests check.
@@ -306,6 +307,158 @@ FM_HD void search_lane(const SearchArgs<R>& a, int64_t lane) {
   }
   a.nhits[lane] = nh;
   a.sums[lane] = sum;
+}
+
+// ---- SA resolution (K3): SA row -> sequence index ----
+
+template <typename R>
+struct ResolveArgs {
+  const uint32_t* blocks;
+  const R* fchr;
+  R zoff;
+  const int32_t* offs;   // the padded (ceil(n/8), 8) sample table, flat
+  int64_t noffs;         // its length, padding included
+  const R* brows;        // [nb] sorted genome-boundary rows
+  const int32_t* brefs;  // [nb] their refs
+  int64_t nb;
+  int32_t offrate;
+  int32_t narrow;     // npat <= 0xFFFF: boundary refs masked to 16 bits
+  int32_t max_steps;  // walk iterations of 8 LF steps each
+};
+
+// The exits of one row (ops/fm_jax.py _try_offset of the JAX package;
+// tryOffset, bt2_idx.h:1980-2014): the '$' row gives 0 and wins; else a
+// sampled row gives its sample (index clipped to the padded table);
+// else a boundary row gives its ref, checked only when the last
+// boundary row is nonzero and the row does not pass it; else -1.
+template <typename R>
+FM_HD int32_t try_offset(const ResolveArgs<R>& a, R row) {
+  int32_t t = -1;
+  const R mask = ((R)1 << a.offrate) - 1;
+  const bool sampled = (row & mask) == 0;
+  if (sampled) {
+    R si = row >> a.offrate;
+    if (si < 0) si = 0;
+    if (si > (R)(a.noffs - 1)) si = (R)(a.noffs - 1);
+    t = a.offs[si];
+  } else if (a.nb > 0) {
+    int64_t lo = 0, hi = a.nb;  // searchsorted, side "left"
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (a.brows[mid] < row) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    const int64_t pos = lo < a.nb ? lo : a.nb - 1;
+    const R last = a.brows[a.nb - 1];
+    if (a.brows[pos] == row && last > 0 && row <= last)
+      t = a.narrow ? (a.brefs[pos] & 0xFFFF) : a.brefs[pos];
+  }
+  if (row == a.zoff) t = 0;
+  return t;
+}
+
+// The LF walk of one row until an exit. The JAX walk runs 8 steps per
+// while-loop iteration and counts iterations, so it gives up (-1) after
+// 8 * max_steps steps; a row's result does not depend on the other rows
+// of its batch, so the per-row walk gives the lockstep walk's output.
+template <typename R>
+FM_HD int32_t resolve_row(const ResolveArgs<R>& a, R row) {
+  int32_t t = try_offset<R>(a, row);
+  const int64_t budget = 8 * (int64_t)a.max_steps;
+  for (int64_t k = 0; t < 0 && k < budget; ++k) {
+    row = lf<R>(a.blocks, a.fchr, a.zoff, row, bwt_at<R>(a.blocks, row));
+    t = try_offset<R>(a, row);
+  }
+  return t;
+}
+
+// ---- presolve pick (K5): the SA rows a mate's classification asks for ----
+
+template <typename R>
+struct PickArgs {
+  const R* h_top;  // [2M, mh] first-pass hit buffers; lanes 2m, 2m+1 are
+  const R* h_bot;  // mate m's fw and rc strands
+  const int32_t* h_len;
+  int32_t mh;
+  int32_t khits;
+  int32_t ihits;
+  int32_t min_hitlen;
+  int32_t rk;
+  R* rows;         // [M, rk]; unused slots 0
+  int32_t* nrows;  // [M]
+};
+
+template <typename R>
+FM_HD R hit_size(const R* t, const R* b, int i) {
+  return t[i] >= 0 ? b[i] - t[i] : 0;
+}
+
+// Mate m's rows, as classify/engine.py _presolve_pick_rows of the JAX
+// package: strand choice by score then max length, the
+// max_genome_hit_size budget mghs, the gate len > min_hitlen, size != 0,
+// chosen strand, min(size, mghs) <= ihits; gated hits in the stable
+// order of the key min(size, 2^18) * 4096 - len (fw hits before rc on
+// ties), each taken while the nelts before it sum to less than mghs,
+// its rows laid into the rk slots from that sum on. Entry i is strand
+// i / mh, slot i % mh. A hit's place in the stable order is the number
+// of gated hits that sort before it, so no sort is needed: 2 mh is at
+// most 32 on the first pass.
+template <typename R>
+FM_HD void pick_mate(const PickArgs<R>& a, int64_t m) {
+  const int mh = a.mh, n = 2 * a.mh;
+  const R* t = a.h_top + 2 * m * mh;
+  const R* b = a.h_bot + 2 * m * mh;
+  const int32_t* ln = a.h_len + 2 * m * mh;
+  int32_t sc[2] = {0, 0}, mx[2] = {0, 0};
+  for (int i = 0; i < n; ++i) {
+    const int s = i / mh;
+    if (ln[i] >= a.min_hitlen && hit_size<R>(t, b, i) != 0) {
+      sc[s] += (ln[i] - 15) * (ln[i] - 15);
+      if (ln[i] > mx[s]) mx[s] = ln[i];
+    }
+  }
+  const bool fw = sc[0] > sc[1] || (sc[0] == sc[1] && mx[0] > mx[1]);
+  const bool rc = sc[1] > sc[0] || (sc[0] == sc[1] && mx[1] > mx[0]);
+  const bool use[2] = {fw || (!fw && !rc), rc || (!fw && !rc)};
+  R maxsz = 0;
+  for (int i = 0; i < n; ++i) {
+    const R size = hit_size<R>(t, b, i);
+    if (ln[i] >= a.min_hitlen && size != 0 && use[i / mh] && size > maxsz)
+      maxsz = size;
+  }
+  const R mghs = maxsz > (R)a.khits
+                     ? maxsz + (R)((int)use[0] + (int)use[1]) * (R)a.khits
+                     : (R)a.khits;
+  R* rows = a.rows + m * a.rk;
+  for (int s = 0; s < a.rk; ++s) rows[s] = 0;
+  R total = 0;
+  for (int i = 0; i < n; ++i) {
+    const R size = hit_size<R>(t, b, i);
+    const R nelt = size < mghs ? size : mghs;
+    if (!(ln[i] > a.min_hitlen && size != 0 && use[i / mh] &&
+          nelt <= (R)a.ihits))
+      continue;
+    const R key = (size < ((R)1 << 18) ? size : ((R)1 << 18)) * 4096 - ln[i];
+    R prev = 0;  // nelts of the gated hits that sort before hit i
+    for (int k = 0; k < n; ++k) {
+      const R sk = hit_size<R>(t, b, k);
+      const R nk = sk < mghs ? sk : mghs;
+      if (k == i || !(ln[k] > a.min_hitlen && sk != 0 && use[k / mh] &&
+                      nk <= (R)a.ihits))
+        continue;
+      const R kk = (sk < ((R)1 << 18) ? sk : ((R)1 << 18)) * 4096 - ln[k];
+      if (kk < key || (kk == key && k < i)) prev += nk;
+    }
+    if (nelt > 0 && prev < mghs) {
+      total += nelt;
+      for (R s = prev; s < prev + nelt && s < (R)a.rk; ++s)
+        rows[s] = t[i] + (s - prev);
+    }
+  }
+  a.nrows[m] = (int32_t)(total < (R)a.rk ? total : (R)a.rk);
 }
 
 }  // namespace fm

@@ -1,5 +1,5 @@
 """The device FM index for the PyTorch port: packed BWT blocks, packed
-ftab rows, and the load-time depth-12 ftab (K4).
+ftab rows, the load-time depth-12 ftab (K4), and the SA resolver (K3).
 
 Layout (byte-equal to the JAX package's ops/fm_jax.py): the BWT is
 repacked into 512-base block rows of 4 occ checkpoints followed by 32
@@ -23,7 +23,7 @@ import torch
 
 from .. import _cuda
 from ..index.cf_io import CFIndex
-from .rank import is_wide, lf, rank_plain, word_counts
+from .rank import bwt_at_plain, is_wide, lf, rank_plain, word_counts
 
 BLOCK_BASES = 512
 WORDS_PER_BLOCK = BLOCK_BASES // 16
@@ -345,3 +345,118 @@ class DeviceFMIndex:
             wide=wide,
             host_blocks=np.array(blocks) if keep_host_blocks else None)
 
+
+
+# ---- K3: SA row -> sequence index ----
+
+RESOLVE_MAX_STEPS = 4096   # walk iterations of 8 LF steps (fm_jax's)
+
+
+def try_offset_plain(fm: DeviceFMIndex, rows: torch.Tensor,
+                     stats: dict = None) -> torch.Tensor:
+    """The exits of each row (the JAX package's ops/fm_jax.py _try_offset,
+    fm_common.cuh try_offset): 0 at the '$' row, which wins; else the
+    sample of a sampled row, its index clipped to the padded table; else
+    the ref of a genome-boundary row (its low 16 bits when npat <=
+    0xFFFF), checked only when the last boundary row is nonzero and the
+    row does not pass it; else -1. int32. stats (optional dict) receives
+    `offs`: the sample indexes read."""
+    r = rows.to(torch.int64)
+    offs = fm.offs.reshape(-1)
+    sampled = (r & ((1 << fm.offrate) - 1)) == 0
+    si = (r >> fm.offrate).clamp(0, offs.numel() - 1)
+    t = torch.where(sampled, offs[si], -1)
+    nb = fm.boundary_rows.numel()
+    if nb and int(fm.boundary_rows[-1]) > 0:
+        br = fm.boundary_rows.to(torch.int64)
+        pos = torch.searchsorted(br, r).clamp(max=nb - 1)
+        bval = fm.boundary_refs[pos]
+        if fm.npat <= 0xFFFF:
+            bval = bval & 0xFFFF
+        is_b = (br[pos] == r) & ~sampled & (r <= br[-1])
+        t = torch.where(is_b, bval, t)
+    t = torch.where(r == fm.zoff, 0, t)
+    if stats is not None:
+        stats.setdefault("offs", []).append(si[sampled])
+    return t.to(torch.int32)
+
+
+def resolve_rows_plain(fm: DeviceFMIndex, rows: torch.Tensor,
+                       max_steps: int = RESOLVE_MAX_STEPS,
+                       stats: dict = None) -> torch.Tensor:
+    """Plain PyTorch K3: a lockstep LF walk over the rows not yet
+    resolved, for at most 8 * max_steps steps (the JAX walk's 8 unrolled
+    steps per counted iteration); -1 for rows still unresolved then.
+    Returns int32 [N]. stats (optional dict) receives the kernel's
+    lookups for these rows: `bwt_rows` and `rank_rows`/`rank_chars` of
+    every LF step and `offs` of every sample read."""
+    r = rows.to(torch.int64).clone()
+    t = try_offset_plain(fm, r, stats)
+    f = fm.fchr.to(torch.int64)
+    counts = word_counts(fm.blocks)
+    act = torch.nonzero(t < 0)[:, 0]
+    for _ in range(8 * max_steps):
+        if act.numel() == 0:
+            break
+        ra = r[act]
+        c = bwt_at_plain(fm.blocks, ra)
+        nxt = f[c] + rank_plain(fm.blocks, fm.zoff, ra, c, counts)
+        ta = try_offset_plain(fm, nxt, stats)
+        if stats is not None:
+            for k, v in (("bwt_rows", ra), ("rank_rows", ra),
+                         ("rank_chars", c)):
+                stats.setdefault(k, []).append(v)
+        r[act] = nxt
+        t[act] = ta
+        act = act[ta < 0]
+    return t
+
+
+def resolve_rows(fm: DeviceFMIndex, rows: torch.Tensor,
+                 max_steps: int = RESOLVE_MAX_STEPS) -> torch.Tensor:
+    """K3 over rows (row dtype [N]) -> int32 [N] sequence indexes, -1
+    where unresolved: the CUDA kernel (csrc/resolve.cu, one thread per
+    row) for CUDA tensors, the plain version for CPU tensors."""
+    if not (rows.is_cuda or fm.blocks.is_cuda):
+        return resolve_rows_plain(fm, rows, max_steps)
+    _cuda.require_cuda(fm.blocks, fm.fchr, fm.offs, fm.boundary_rows,
+                       fm.boundary_refs, rows)
+    if rows.dtype != fm.row_dtype or rows.dim() != 1:
+        raise ValueError(f"rows must be a 1-d {fm.row_dtype} tensor")
+    out = torch.empty(rows.shape, dtype=torch.int32, device=rows.device)
+    if rows.numel() == 0:
+        return out
+    lib = _cuda.lib("resolve")
+    fn = lib.fm_resolve_wide if fm.wide else lib.fm_resolve_narrow
+    rc = fn(fm.blocks.data_ptr(), fm.fchr.data_ptr(), int(fm.zoff),
+            fm.offs.data_ptr(), fm.offs.numel(), fm.boundary_rows.data_ptr(),
+            fm.boundary_refs.data_ptr(), fm.boundary_rows.numel(),
+            fm.offrate, int(fm.npat <= 0xFFFF), max_steps, rows.data_ptr(),
+            out.data_ptr(), rows.numel(), _cuda.stream_ptr(rows.device))
+    _cuda.check(rc, "resolve kernel")
+    _cuda.LAUNCHES["resolve"] += 1
+    return out
+
+
+def make_resolver(fm: DeviceFMIndex, max_steps: int = RESOLVE_MAX_STEPS):
+    """Batched SA-row -> sequence-index resolver over K3 (the JAX
+    package's ops/fm_jax.py make_resolver): a callable from rows (numpy)
+    to int32 numpy values, -1 where unresolved. On a CUDA index it
+    uploads, launches and copies back on a stream of its own and returns
+    finished arrays, so any thread may call it (the native tail calls it
+    under engine.dev_lock). Like the JAX resolver it has no first_hits,
+    bwops or needs_bucket: the native tail pads its rows to a lane bucket
+    and sends extension misses to the engine's first-hit search."""
+    stream = torch.cuda.Stream(fm.device) if fm.device.type == "cuda" \
+        else None
+    rdt = np.int64 if fm.wide else np.int32
+
+    def resolve(rows) -> np.ndarray:
+        t = torch.from_numpy(np.ascontiguousarray(rows, dtype=rdt))
+        if stream is None:
+            return resolve_rows(fm, t, max_steps).numpy()
+        with torch.cuda.stream(stream):
+            return resolve_rows(fm, t.to(fm.device), max_steps).cpu().numpy()
+
+    resolve.wide = fm.wide
+    return resolve

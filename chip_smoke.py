@@ -10,20 +10,32 @@ JSON line; any failure exits non-zero:
 
   env       card name, count, power limit
   kernels   each kernel against its plain PyTorch version on the synth
-            index (tests/fixtures/synth), exact integer equality:
-            rank (K0) on 65,536 random (row, char) pairs, depth-12 ftab
-            (K4), greedy search (K1) on every lane of the synth reads,
-            narrow, wide and deep, min_hitlen 16 and 22
-  synth     the classify CLI on the card: unpaired output and report and
-            paired output byte-equal to the reference goldens
+            index (tests/fixtures/synth), exact integer equality, narrow
+            and wide: rank (K0) on 65,536 random (row, char) pairs,
+            depth-12 ftab (K4), greedy search (K1) on every lane of the
+            synth reads, deep or not, min_hitlen 16 and 22; the SA
+            resolve walk (K3) on 65,536 random rows and the edge rows, at
+            the full step budget and at max_steps=1; the presolve (K5,
+            then K3) on the synth lane sets, khits 5 and 16
+  synth     the classify CLI on the card (host resolve), then
+            GPUClassificationPipeline with host_resolve=False (device
+            resolve): unpaired output and report and paired output
+            byte-equal to the reference goldens; once more with the
+            presolve off, so the tail thread resolves every row on the
+            card
   full      the 256 Mbp production-regime database generated from its
             seed (evaluation/bigdb.py: 64 x 4 Mbp genomes, 100k 100 bp
             reads), built into .chip_smoke_cache/, streamed through
-            GPUClassificationPipeline in 32,768-read batches. Launch
-            counts of that run, K1/K4/K0 against their plain versions at
-            this size, the first 300 reads against the host oracle
-            (ClassificationPipeline + FMOracle), reads/s, kernel times by
-            CUDA events with their bounds, peak device memory
+            GPUClassificationPipeline in 32,768-read batches four times
+            on one index, in turns: host resolve (the default; the
+            counted main path, index build included), device resolve
+            (counted), device, host; every stream's rows byte-equal to
+            the first's. Launch counts of each path, the first 300 reads
+            against the host oracle (ClassificationPipeline + FMOracle),
+            reads/s, kernel times at this size by CUDA events beside
+            their plain versions and bounds (K0 on K4's level-1 queries,
+            K1 and K5 on the first batch, K3 on that batch's presolve
+            rows), peak device memory
 
 Then one JSON line of per-kernel numbers, the card's nvidia-smi line,
 and last {"ok": true, "device": {...}}. It takes no arguments.
@@ -36,6 +48,7 @@ over the card's integer and popcount issue rates.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -61,6 +74,13 @@ SECTOR = 32                    # bytes: the unit the L2 moves to/from HBM
 # bwt_at() takes 5. The search's read decoding is not counted, so its
 # bound is, if anything, too low.
 RANK_OPS, WORD_OPS, PARTIAL_OPS, BWT_OPS = 10, 4, 7, 5
+# The presolve pick (K5), per hit entry: its size, the scoring and gate
+# tests and its sort key (about 20 operations); per mate, the compares
+# of a sort of its 2 mh keys (2 mh log2(2 mh)); per flat slot, the
+# search for its mate (log2 M) and the copy. K3's exit tests (the sample
+# and boundary checks) are not counted, so its bound is, if anything,
+# too low.
+PICK_OPS = 20
 SEARCH_MH = 16                 # hit slots per lane in the K1 checks
 BATCH_READS = 32768            # bench.py's batch: 65,536 lanes
 BIGDB_GENOMES = 64             # evaluation/bigdb.py N_GENOMES (256 Mbp)
@@ -68,14 +88,22 @@ ORACLE_READS = 300
 
 KERNELS = {
     "rank": dict(source="centrifuge_tpu_torch/csrc/rank.cu",
-                 replaces="centrifuge_tpu/ops/pallas_rank.py:90"),
+                 replaces="centrifuge_tpu/ops/pallas_rank.py:91"),
     "search": dict(source="centrifuge_tpu_torch/csrc/search.cu",
                    replaces="centrifuge_tpu/classify/engine.py:181"),
     "ftab12": dict(source="centrifuge_tpu_torch/csrc/ftab12.cu",
-                   replaces="centrifuge_tpu/ops/fm_jax.py:455"),
+                   replaces="centrifuge_tpu/ops/fm_jax.py:456"),
+    "resolve": dict(source="centrifuge_tpu_torch/csrc/resolve.cu",
+                    replaces="centrifuge_tpu/ops/fm_jax.py:611"),
+    "presolve": dict(source="centrifuge_tpu_torch/csrc/presolve.cu",
+                     replaces="centrifuge_tpu/classify/engine.py:868"),
 }
+# the kernels each path launches, counted from 0 just before it
+HOST_RESOLVE_PATH = ("rank", "ftab12", "search")
+DEVICE_RESOLVE_PATH = ("search", "presolve", "resolve")
 NO_LIBRARY = ("no single PyTorch call computes a batched BWT rank, a "
-              "greedy FM search or an FM-index ftab extension")
+              "greedy FM search, an FM-index ftab extension, an LF walk "
+              "to an SA sample or the presolve's pick")
 
 
 def load_port():
@@ -85,6 +113,7 @@ def load_port():
     import torch
     from centrifuge_tpu_torch import _cuda
     from centrifuge_tpu_torch.classify import engine
+    from centrifuge_tpu_torch.classify.algo import ClassifierConfig
     from centrifuge_tpu_torch.classify.gpu_pipeline import \
         GPUClassificationPipeline
     from centrifuge_tpu_torch.classify.pipeline import (
@@ -92,15 +121,18 @@ def load_port():
     from centrifuge_tpu_torch.cli import classify as cli
     from centrifuge_tpu_torch.evaluation import bigdb
     from centrifuge_tpu_torch.index.cf_io import load_cf_index
-    from centrifuge_tpu_torch.io.fastx import read_batch
+    from centrifuge_tpu_torch.io.fastx import read_batch, read_fastx
     from centrifuge_tpu_torch.ops import fm_torch, rank
     from centrifuge_tpu_torch.ops.fm_numpy import FMOracle
+    from centrifuge_tpu_torch.report.writers import write_report
     from centrifuge_tpu_torch.utils.fallback import fallbacks
     return dict(np=np, torch=torch, cuda=_cuda, engine=engine,
                 Pipe=GPUClassificationPipeline,
                 OraclePipe=ClassificationPipeline, Cfg=PipelineConfig,
                 cli=cli, bigdb=bigdb, load_cf_index=load_cf_index,
-                read_batch=read_batch,
+                read_batch=read_batch, read_fastx=read_fastx,
+                ClsCfg=ClassifierConfig,
+                write_report=write_report,
                 fm_torch=fm_torch, rank=rank, FMOracle=FMOracle,
                 fallbacks=fallbacks)
 
@@ -165,14 +197,15 @@ class Smoke:
 
     def traffic(self, fm, stats: dict):
         """(bytes, integer ops, popcounts) that the lookups recorded by a
-        plain run need: each 32-byte sector of blocks, ftab and ftab12
-        that they touch counted once, however often it is read."""
+        plain run need: each 32-byte sector of blocks, ftab, ftab12 and
+        the SA samples that they touch counted once, however often it is
+        read."""
         torch = self.torch
         i64 = torch.int64
         width = fm.blocks.shape[1] * 4
         word0 = (8 if fm.wide else 4) * 4
         tables = dict(blocks=fm.blocks, ftab=fm.ftab_rows,
-                      ftab12=fm.ftab12_rows)
+                      ftab12=fm.ftab12_rows, offs=fm.offs)
         seen = {k: torch.zeros(t.numel() * 4 // SECTOR + 1,
                                dtype=torch.bool, device=t.device)
                 for k, t in tables.items() if t is not None}
@@ -208,6 +241,8 @@ class Smoke:
                 seen[key][((fi >> shift) * width
                            + (fi & ((1 << shift) - 1)) * entry)
                           // SECTOR] = True
+        for si in stats.get("offs", []):
+            seen["offs"][si.to(i64) * 4 // SECTOR] = True
         nbytes = SECTOR * sum(int(v.sum()) for v in seen.values())
         return nbytes, int_ops, popc
 
@@ -218,6 +253,44 @@ class Smoke:
         return dict(bound_ms=max(t_b, t_o),
                     bound_by="bytes" if t_b >= t_o else "operations",
                     moved_bytes=nbytes, int_ops=int_ops, popc_ops=popc)
+
+    def stream(self, idx, batches, host_resolve: bool, dfm=None):
+        """A fresh pipeline (on dfm, else building the index) streaming
+        the batches, launch counts from 0 before it is built: (pipe,
+        rows, build seconds, stream seconds, launches)."""
+        m, torch = self.m, self.torch
+        m["cuda"].reset_launches()
+        t0 = time.perf_counter()
+        pipe = m["Pipe"](idx, m["Cfg"](host_resolve=host_resolve),
+                         device=self.dev, dfm=dfm)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows = []
+        for chunk in pipe.classify_stream_unpaired(batches):
+            rows += chunk
+        t2 = time.perf_counter()
+        return pipe, rows, t1 - t0, t2 - t1, dict(m["cuda"].LAUNCHES)
+
+    @staticmethod
+    def same_rows(what: str, got, want) -> None:
+        if got != want:
+            bad = next((i for i, (a, b) in enumerate(zip(got, want))
+                        if a != b), min(len(got), len(want)))
+            fail(f"{what} stream differs from the host-resolve stream at "
+                 f"row {bad}")
+
+    def check_path(self, path: str, launches: dict, kernels,
+                   absent=()) -> None:
+        """Fail unless each kernel of a path was launched in its run, and
+        none of `absent` was."""
+        for k in kernels:
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched on the {path} path")
+        for k in absent:
+            if launches[k]:
+                fail(f"kernel {k} was launched on the {path} path")
+        if self.m["fallbacks"]():
+            fail(f"native fallbacks: {self.m['fallbacks']()}")
 
     def lanes_of(self, recs):
         seqs = []
@@ -290,6 +363,19 @@ class Smoke:
                     + rk.rank_plain(fm.blocks, fm.zoff, rows, chars)
                     ).to(rows.dtype)
             self.equal(f"lf wide={wide}", [got], [want])
+            # K3 on the edge rows (0, the '$' row, the last row, the
+            # boundary rows) and 65,536 random rows, at the full step
+            # budget and cut to 8 LF steps (max_steps=1)
+            qrows = np.concatenate([
+                [0, idx.zoff, idx.bwt_len - 1],
+                idx.boundary_rows.astype(np.int64),
+                g.integers(0, idx.bwt_len, 65536)])
+            qrows = torch.from_numpy(qrows.astype(
+                np.int64 if wide else np.int32)).to(self.dev)
+            for steps in (fmt.RESOLVE_MAX_STEPS, 1):
+                self.equal(f"resolve wide={wide} max_steps={steps}",
+                           [fmt.resolve_rows(fm, qrows, steps)],
+                           [fmt.resolve_rows_plain(fm, qrows, steps)])
         rb = m["read_batch"]
         sets = {
             "reads": self.lanes_of(rb([os.path.join(FIX, "reads.fq")])),
@@ -322,8 +408,25 @@ class Smoke:
             self.equal(f"first hits wide={wide}",
                        eng_mod.search_lanes(*args),
                        eng_mod.search_plain(*args))
+            # K5 then K3 on each lane set's first-pass hit buffers
+            for name, seqs in sets.items():
+                reads, lens, st, lmax = self.packed_lanes(eng, seqs)
+                hits = eng_mod.search_lanes(
+                    fm, reads, lens, st, min(eng.FIRST_MAX_HITS, lmax), 22,
+                    eng.increment, False, eng._deep(lmax))
+                for khits in (5, 16):
+                    args = (fm, hits[0], hits[1], hits[3], khits,
+                            m["ClsCfg"](khits=khits).ihits(idx.compressed),
+                            22, eng_mod.presolve_rk(khits))
+                    self.equal(f"presolve {name} wide={wide} khits={khits}",
+                               list(eng_mod.presolve_lanes(*args)),
+                               list(eng_mod.presolve_plain(*args)))
         emit(dict(phase="kernels", ftab12="equal (narrow, wide)",
                   rank="equal on 65536 pairs (narrow, wide)",
+                  resolve="equal on 65536 rows + edges (narrow, wide; "
+                          "max_steps 4096 and 1)",
+                  presolve="equal on the synth lane sets (narrow, wide; "
+                           "khits 5 and 16)",
                   search_lanes_checked=n_checked))
 
     def synth(self) -> None:
@@ -353,11 +456,67 @@ class Smoke:
                     fail(f"{gold}: the GPU path's output differs")
                 checks[gold] = "byte-equal"
         emit(dict(phase="synth", **checks))
+        self.synth_device_resolve()
+
+    def synth_device_resolve(self) -> None:
+        """The goldens through GPUClassificationPipeline with
+        host_resolve=False (the CLI has no such flag, as the JAX CLI has
+        none), then unpaired once more with the presolve off."""
+        m = self.m
+        cuda = m["cuda"]
+        idx = m["load_cf_index"](os.path.join(FIX, "synth"))
+        cfg = m["Cfg"](host_resolve=False)
+        recs = m["read_batch"]([os.path.join(FIX, "reads.fq")])
+        pairs = list(zip(m["read_fastx"](os.path.join(FIX, "reads_1.fq")),
+                         m["read_fastx"](os.path.join(FIX, "reads_2.fq"))))
+
+        def run(pipe, items, paired=False):
+            stream = pipe.classify_stream_paired if paired \
+                else pipe.classify_stream_unpaired
+            rows = [pipe.formatter.header()]
+            for chunk in stream([items[i: i + 1024]
+                                 for i in range(0, len(items), 1024)]):
+                rows += chunk
+            return "\n".join(rows) + "\n"
+
+        def same(got: str, gold: str, what: str) -> None:
+            with open(os.path.join(FIX, gold)) as f:
+                if got != f.read():
+                    fail(f"{gold}: the device-resolve path ({what}) "
+                         "differs")
+
+        out = {}
+        cuda.reset_launches()
+        pipe = m["Pipe"](idx, cfg, device=self.dev)
+        same(run(pipe, recs), "golden_output.tsv", "unpaired")
+        with tempfile.TemporaryDirectory() as td:
+            rep = os.path.join(td, "rep.tsv")
+            m["write_report"](rep, idx, pipe.spm, abundance_analysis=True)
+            with open(rep) as f:
+                same(f.read(), "golden_report.tsv", "report")
+        dfm = pipe.dfm
+        pipe = m["Pipe"](idx, cfg, device=self.dev, dfm=dfm)
+        same(run(pipe, pairs, paired=True), "golden_paired.tsv", "paired")
+        out["launches"] = dict(cuda.LAUNCHES)
+        self.check_path("synth device-resolve", out["launches"],
+                        DEVICE_RESOLVE_PATH)
+        cuda.reset_launches()
+        pipe = m["Pipe"](idx, cfg, device=self.dev, dfm=dfm)
+        pipe.presolve = False
+        same(run(pipe, recs), "golden_output.tsv", "presolve off")
+        out["launches_presolve_off"] = dict(cuda.LAUNCHES)
+        if pipe.metrics.resolve_miss_rows != pipe.metrics.resolve_rows:
+            fail("with the presolve off, every row must resolve in the tail")
+        self.check_path("synth tail-resolve", out["launches_presolve_off"],
+                        ("search", "resolve"), absent=("presolve",))
+        emit(dict(phase="synth_device_resolve",
+                  unpaired="byte-equal", report="byte-equal",
+                  paired="byte-equal", presolve_off="byte-equal",
+                  tail_resolved_rows=pipe.metrics.resolve_rows, **out))
 
     def full(self) -> None:
         m, torch, np = self.m, self.torch, self.np
-        fmt, rk, eng_mod, cuda = (m["fm_torch"], m["rank"], m["engine"],
-                                  m["cuda"])
+        fmt, rk, eng_mod = m["fm_torch"], m["rank"], m["engine"]
         bigdb = m["bigdb"]
         bigdb.N_GENOMES = BIGDB_GENOMES
         t0 = time.perf_counter()
@@ -371,30 +530,18 @@ class Smoke:
                    for i in range(0, len(recs), BATCH_READS)]
 
         # ---- the main path, counted: index load (K0 + K4), then every
-        # batch through the pipeline (K1) ----
+        # batch through the pipeline (K1), rows resolved on the host ----
         torch.cuda.reset_peak_memory_stats()
-        cuda.reset_launches()
-        t0 = time.perf_counter()
-        pipe = m["Pipe"](idx, m["Cfg"](), device=self.dev)
-        torch.cuda.synchronize()
-        index_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rows = []
-        for chunk in pipe.classify_stream_unpaired(batches):
-            rows += chunk
-        stream_s = time.perf_counter() - t0
-        launches = dict(cuda.LAUNCHES)
+        pipe, rows, index_s, stream_s, launches = self.stream(idx, batches,
+                                                              True)
         peak = torch.cuda.max_memory_allocated()
         fm = pipe.dfm
         pm = pipe.metrics
-        for k, v in launches.items():
-            if v <= 0:
-                fail(f"kernel {k} was not launched on the main path")
+        self.check_path("host-resolve", launches, HOST_RESOLVE_PATH,
+                        absent=("presolve", "resolve"))
         off = [k for k, t in fm.tensors().items() if t.device != self.dev]
         if off:
             fail(f"index tensors off the card: {off}")
-        if m["fallbacks"]():
-            fail(f"native fallbacks: {m['fallbacks']()}")
         if not fm.deep:
             fail("the depth-12 ftab gate did not switch on")
         emit(dict(phase="full_main_path", bases=int(idx.bwt_len),
@@ -429,6 +576,49 @@ class Smoke:
                   rows=len(want), result="byte-equal",
                   seconds=round(time.perf_counter() - t0, 3)))
 
+        # ---- the device-resolve path (host_resolve=False) on the same
+        # index and reads: presolve (K5 + K3) in each search dispatch,
+        # the tail's misses through K3 and K1 ----
+        torch.cuda.reset_peak_memory_stats()
+        pipe2, rows2, _, stream2_s, launches2 = self.stream(
+            idx, batches, False, fm)
+        self.check_path("device-resolve", launches2, DEVICE_RESOLVE_PATH)
+        self.same_rows("device-resolve", rows2, rows)
+        pm2 = pipe2.metrics
+        emit(dict(phase="full_device_resolve", reads=len(recs),
+                  rows="byte-equal to the host-resolve stream",
+                  stream_s=round(stream2_s, 3),
+                  reads_per_s=round(len(recs) / stream2_s, 1),
+                  launches=launches2,
+                  max_memory_allocated=int(torch.cuda.max_memory_allocated()),
+                  collect_wait_s=round(pm2.collect_wait_secs, 3),
+                  tail_wait_s=round(pm2.tail_wait_secs, 3),
+                  tail_run_s=round(pm2.tail_run_secs, 3),
+                  resolve_rows=pm2.resolve_rows,
+                  resolve_miss_rows=pm2.resolve_miss_rows,
+                  ext_lanes=pm2.ext_lanes,
+                  download_mb=round(pm2.download_bytes / 1e6, 1)))
+
+        # ---- the two paths in turns on one card (host, device, device,
+        # host): the first two are the streams above ----
+        turns = [("host", stream_s, pm), ("device", stream2_s, pm2)]
+        for path in ("device", "host"):
+            p, r, _, sec, launches_t = self.stream(idx, batches,
+                                                   path == "host", fm)
+            if path == "host":      # the index is built: K1 only
+                self.check_path("host-resolve (turn)", launches_t,
+                                ("search",), absent=("presolve", "resolve"))
+            else:
+                self.check_path("device-resolve (turn)", launches_t,
+                                DEVICE_RESOLVE_PATH)
+            self.same_rows(f"{path}-resolve (turn)", r, rows)
+            turns.append((path, sec, p.metrics))
+        emit(dict(phase="full_turns", order=[t[0] for t in turns],
+                  reads_per_s=[round(len(recs) / t[1], 1) for t in turns],
+                  tail_run_s=[round(t[2].tail_run_secs, 3) for t in turns],
+                  tail_wait_s=[round(t[2].tail_wait_secs, 3)
+                               for t in turns]))
+
         # ---- K1 against its plain version on one full batch ----
         eng = pipe.engine
         seqs = self.lanes_of(batches[0])
@@ -452,6 +642,47 @@ class Smoke:
         self.rows["search"].update(
             launches=launches["search"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=None, lanes=L,
+            **self.bound(nbytes + io, int_ops, popc))
+
+        # ---- K5 on that batch's first-pass hit buffers, as the
+        # device-resolve path's dispatch runs it ----
+        khits = pipe2.cfg.classifier.khits
+        pre = (got[0], got[1], got[3], khits, pipe2.classifier.ihits,
+               eng.min_hitlen, eng_mod.presolve_rk(khits))
+        flat = eng_mod.presolve_rows(*pre)
+        want, plain_ms = self.time_host(
+            lambda: eng_mod.presolve_rows_plain(*pre))
+        err = self.equal("presolve (full batch)", [flat], [want])
+        ms = self.time_cuda(lambda: eng_mod.presolve_rows(*pre), 20)
+        M, n = L // 2, 2 * SEARCH_MH
+        # hit buffers in, flat rows out; the pick per entry and per mate,
+        # the mate search per flat slot
+        io = L * SEARCH_MH * (2 * rsz + 4) + flat.numel() * rsz
+        ops = (L * SEARCH_MH * PICK_OPS + M * n * math.ceil(math.log2(n))
+               + flat.numel() * (math.ceil(math.log2(M)) + 2))
+        self.rows["presolve"].update(
+            launches=launches2["presolve"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=None, mates=M,
+            flat_rows=flat.numel(), **self.bound(io, ops, 0))
+
+        # ---- K3 on those flat rows ----
+        tidx = fmt.resolve_rows(fm, flat)
+        want, plain_ms = self.time_host(
+            lambda: fmt.resolve_rows_plain(fm, flat))
+        err = self.equal("resolve (full batch)", [tidx], [want])
+        ms = self.time_cuda(lambda: fmt.resolve_rows(fm, flat), 20)
+        stats = {}
+        fmt.resolve_rows_plain(fm, flat, stats=stats)
+        steps = sum(r.numel() for r in stats.get("bwt_rows", []))
+        nbytes, int_ops, popc = self.traffic(fm, stats)
+        del stats
+        # rows in, values out, the boundary table and fchr read
+        io = (flat.numel() * (rsz + 4) + fm.boundary_rows.numel() * (rsz + 4)
+              + fm.fchr.numel() * rsz)
+        self.rows["resolve"].update(
+            launches=launches2["resolve"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=None, rows=flat.numel(),
+            lf_steps=steps, unresolved=int((tidx < 0).sum()),
             **self.bound(nbytes + io, int_ops, popc))
 
         # ---- K4 against its plain version ----
@@ -478,6 +709,29 @@ class Smoke:
             plain_ms=plain_ms, library_ms=None,
             **self.bound(nbytes + io, int_ops, popc))
 
+        # ---- K0 at the main path's size: K4's level 1, LF of both ends
+        # of every depth-10 range for each char (8.4M queries) ----
+        rows1 = torch.cat([t0v.repeat(4), b0v.repeat(4)])
+        chars1 = torch.arange(4, dtype=torch.int32, device=self.dev
+                              ).repeat_interleave(fmt.N10).repeat(2)
+        lf_args = (fm.blocks, fm.fchr, fm.zoff, rows1, chars1)
+        got = rk.lf(*lf_args)
+        want, plain_ms = self.time_host(lambda: (
+            fm.fchr.to(torch.int64)[chars1.to(torch.int64)]
+            + rk.rank_plain(fm.blocks, fm.zoff, rows1, chars1)
+        ).to(rows1.dtype))
+        err = self.equal("lf (K4 level 1)", [got], [want])
+        del got, want
+        ms = self.time_cuda(lambda: rk.lf(*lf_args), 5)
+        nbytes, int_ops, popc = self.traffic(
+            fm, dict(rank_rows=[rows1], rank_chars=[chars1]))
+        io = rows1.numel() * (2 * rsz + 4) + fm.fchr.numel() * rsz
+        self.rows["rank"].update(
+            launches=launches["rank"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=None, queries=rows1.numel(),
+            **self.bound(nbytes + io, int_ops, popc))
+        del rows1, chars1
+
         # ---- K0 at 65,536 random queries ----
         g = np.random.default_rng(11)
         n = 65536
@@ -494,10 +748,10 @@ class Smoke:
         nbytes, int_ops, popc = self.traffic(
             fm, dict(rank_rows=[rows_q], rank_chars=[chars]))
         io = n * (2 * rows_q.element_size() + 4)   # rows, chars in; out
-        self.rows["rank"].update(
-            launches=launches["rank"], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=None, queries=n,
-            **self.bound(nbytes + io, int_ops, popc))
+        b = self.bound(nbytes + io, int_ops, popc)
+        self.rows["rank"]["at_65536_queries"] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"])
         emit(dict(phase="full_kernels", library_ms_note=NO_LIBRARY,
                   card=self.smi))
 

@@ -165,7 +165,8 @@ def test_first_hits_match_host_walk(indexes, lanes, twin, wide):
 
 def _sectors_brute(fm, st):
     """(bytes, int ops, popcounts) of recorded lookups, one address at a
-    time: the first and last byte of every word a lookup reads."""
+    time: the first and last byte of every word a lookup reads, and the
+    sample each `offs` lookup reads."""
     width = fm.blocks.shape[1] * 4
     word0 = (8 if fm.wide else 4) * 4
     cat = {k: torch.cat(v).tolist() for k, v in st.items()}
@@ -186,6 +187,8 @@ def _sectors_brute(fm, st):
     for key in ("ftab", "ftab12"):
         for fi in cat.get(key, []):
             secs.add((key, ((fi // per) * width + (fi % per) * entry) // 32))
+    for si in cat.get("offs", []):
+        secs.add(("offs", 4 * si // 32))
     return 32 * len(secs), int_ops, popc
 
 

@@ -1,8 +1,9 @@
 """The CUDA kernels' per-lane arithmetic (csrc/fm_common.cuh), compiled
 for the host with g++ (csrc/cpu_twin.cpp), against the port's plain
-PyTorch versions: rank and the depth-12 ftab here, the search in
-test_torch_engine.py. Nothing else on a machine without nvcc compiles
-the code the card runs. Integers throughout: exact equality."""
+PyTorch versions: rank, the depth-12 ftab, the SA resolve walk and its
+exits, and the presolve pick here, the search in test_torch_engine.py.
+Nothing else on a machine without nvcc compiles the code the card runs.
+Integers throughout: exact equality."""
 
 import ctypes as C
 import os
@@ -23,6 +24,9 @@ _SIGS = {
     "search": [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
                _P, _I64, _I32, _I32, _I32, _I32, _I32],
     "ftab12": [_P, _P, _I64, _P, _P, _P, _P, _P],
+    "resolve": [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I32,
+                _P, _P, _I64],
+    "pick": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P],
 }
 
 
@@ -75,6 +79,49 @@ def twin_search(lib, fm, reads, lengths, start, mh, min_hitlen, increment,
        ptr(lengths), ptr(start), *[ptr(o) for o in outs], L, mh, min_hitlen,
        increment, int(first_hit_only), int(deep))
     return outs
+
+
+def twin_resolve(lib, fm, rows, max_steps, walk=True):
+    """The K3 lane function (walk=True) or its exits alone over rows, on
+    the host; same outputs as ops/fm_torch.resolve_rows / try_offset_plain."""
+    out = torch.empty(rows.shape, dtype=torch.int32)
+    fn = lib.twin_resolve_wide if fm.wide else lib.twin_resolve_narrow
+    fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(fm.offs), fm.offs.numel(),
+       ptr(fm.boundary_rows), ptr(fm.boundary_refs),
+       fm.boundary_rows.numel(), fm.offrate, int(fm.npat <= 0xFFFF),
+       max_steps, int(walk), ptr(rows), ptr(out), rows.numel())
+    return out
+
+
+def twin_pick(lib, h_top, h_bot, h_len, khits, ihits, min_hitlen, rk):
+    """The K5 pick over all mates, on the host; same outputs as
+    classify/engine.presolve_pick_rows_plain."""
+    L, mh = h_top.shape
+    rows = torch.empty((L // 2, rk), dtype=h_top.dtype)
+    nrows = torch.empty(L // 2, dtype=torch.int32)
+    fn = lib.twin_pick_wide if h_top.dtype == torch.int64 \
+        else lib.twin_pick_narrow
+    fn(ptr(h_top), ptr(h_bot), ptr(h_len), L // 2, mh, khits, ihits,
+       min_hitlen, rk, ptr(rows), ptr(nrows))
+    return rows, nrows
+
+
+def random_hits(M, mh, wide, seed):
+    """Hit buffers [2M, mh] with repeated sizes and lengths (ties of the
+    pick's sort key), empty and unused slots, one-row ranges, sizes past
+    2^18 and past ihits."""
+    rng = np.random.default_rng(seed)
+    L = 2 * M
+    top = rng.integers(0, 1 << 20, (L, mh))
+    size = rng.choice([0, 1, 1, 2, 3, 7, 40, 199, 250, 1 << 19], (L, mh))
+    ln = rng.choice([0, 10, 22, 23, 23, 30, 40, 60], (L, mh))
+    empty = rng.random((L, mh)) < 0.2
+    top[empty] = -1
+    bot = np.where(empty, -1, top + size)
+    dt = np.int64 if wide else np.int32
+    return (torch.from_numpy(top.astype(dt)),
+            torch.from_numpy(bot.astype(dt)),
+            torch.from_numpy(ln.astype(np.int32)))
 
 
 @pytest.fixture(scope="module")
@@ -145,3 +192,40 @@ def test_twin_ftab12_matches_plain(twin, port_index, wide):
     fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(t0), ptr(b0), ptr(t1),
        ptr(b1), ptr(out))
     assert torch.equal(out, fm.ftab12_rows)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_twin_resolve_matches_plain(twin, port_index, wide):
+    """resolve_row and try_offset against the plain walk and exits, on
+    the edge rows and every boundary row, at the full step budget and at
+    max_steps=2 (16 LF steps), which leaves rows unresolved."""
+    from centrifuge_tpu_torch.ops.fm_torch import (DeviceFMIndex,
+                                                   resolve_rows_plain,
+                                                   try_offset_plain)
+    fm = DeviceFMIndex.build(port_index, device="cpu", wide=wide,
+                             deep_ftab=False)
+    rng = np.random.default_rng(6)
+    rows_np = np.concatenate([_edge_rows(port_index.bwt_len, fm.zoff, rng),
+                              fm.boundary_rows.numpy()])
+    rows = torch.from_numpy(rows_np[rows_np < port_index.bwt_len].astype(
+        np.int64 if wide else np.int32))
+    got = twin_resolve(twin, fm, rows, 0, walk=False)
+    assert torch.equal(got, try_offset_plain(fm, rows))
+    assert (got >= 0).any() and (got < 0).any()
+    for steps in (4096, 2):
+        want = resolve_rows_plain(fm, rows, max_steps=steps)
+        assert torch.equal(twin_resolve(twin, fm, rows, steps), want)
+        assert bool((want < 0).any()) == (steps == 2)
+
+
+@pytest.mark.parametrize("khits", [5, 16])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_twin_pick_matches_plain(twin, wide, khits):
+    from centrifuge_tpu_torch.classify.engine import (
+        presolve_pick_rows_plain, presolve_rk)
+    hits = random_hits(512, 16, wide, seed=khits)
+    args = (khits, max(khits, 5) * 40, 22, presolve_rk(khits))
+    rows, nrows = presolve_pick_rows_plain(*hits, *args)
+    t_rows, t_n = twin_pick(twin, *hits, *args)
+    assert torch.equal(t_rows, rows) and torch.equal(t_n, nrows)
+    assert int(nrows.min()) < int(nrows.max())

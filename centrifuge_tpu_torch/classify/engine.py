@@ -109,6 +109,33 @@ def _note(stats: dict, **parts: torch.Tensor) -> None:
         stats.setdefault(k, []).append(v)
 
 
+class TableReads:
+    """The search's table reads on one index, in plain PyTorch: the rank
+    and BWT char of global rows, the depth-10 and depth-12 ftab entries.
+    int64 results. parallel/sharded.py has the same reads over BWT-range
+    shards."""
+
+    def __init__(self, fm: DeviceFMIndex):
+        self.fm = fm
+        self.zoff = int(fm.zoff)
+        self.fchr = fm.fchr.to(torch.int64)
+        self.row_dtype = fm.row_dtype
+        self.deep = fm.ftab12_rows is not None
+        self.counts = word_counts(fm.blocks)
+
+    def rank(self, rows: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
+        return rank_plain(self.fm.blocks, self.zoff, rows, chars, self.counts)
+
+    def bwt(self, rows: torch.Tensor) -> torch.Tensor:
+        return bwt_at_plain(self.fm.blocks, rows)
+
+    def ftab(self, fi: torch.Tensor):
+        return ftab_entry_plain(self.fm.ftab_rows, fi, self.fm.wide)
+
+    def ftab12(self, fi: torch.Tensor):
+        return ftab_entry_plain(self.fm.ftab12_rows, fi, self.fm.wide)
+
+
 def search_plain(fm: DeviceFMIndex, reads: torch.Tensor,
                  lengths: torch.Tensor, start: torch.Tensor, mh: int,
                  min_hitlen: int, increment: int, first_hit_only: bool,
@@ -121,14 +148,23 @@ def search_plain(fm: DeviceFMIndex, reads: torch.Tensor,
     run's lanes, as lists of tensors: `rank_rows`/`rank_chars` of every
     LF rank, `bwt_rows` of every BWT char test of a one-row range, and
     `ftab`/`ftab12` entry indexes of every start lookup."""
+    return search_steps(TableReads(fm), reads, lengths, start, mh,
+                        min_hitlen, increment, first_hit_only, deep, stats)
+
+
+def search_steps(tables, reads: torch.Tensor, lengths: torch.Tensor,
+                 start: torch.Tensor, mh: int, min_hitlen: int,
+                 increment: int, first_hit_only: bool, deep: bool,
+                 stats: dict = None):
+    """search_plain's lockstep loop over the table reads of `tables` (a
+    TableReads, or its sharded counterpart)."""
     dev = reads.device
     codes = unpack_reads(reads)
     L, P = codes.shape
     fi10, fi12, first_n, n12 = _windows(codes)
-    deep = bool(deep and fm.ftab12_rows is not None)
-    zoff = int(fm.zoff)
-    f = fm.fchr.to(torch.int64)
-    counts = word_counts(fm.blocks)
+    deep = bool(deep and tables.deep)
+    zoff = tables.zoff
+    f = tables.fchr
     i64 = dict(dtype=torch.int64, device=dev)
     n_all = lengths.to(torch.int64)
     cur = start.to(torch.int64).clone()
@@ -162,12 +198,12 @@ def search_plain(fm: DeviceFMIndex, reads: torch.Tensor,
         case_a = plain & (left < FTAB_CHARS)
         case_b = plain & ~case_a & (fn < FTAB_CHARS)
         case_c = plain & ~case_a & ~case_b
-        ft, fb = ftab_entry_plain(fm.ftab_rows, w10, fm.wide)
+        ft, fb = tables.ftab(w10)
         go_c = case_c & (fb > ft)
         go12 = torch.zeros_like(st)
         empty12 = torch.zeros_like(st)
         if deep:
-            ft12, fb12 = ftab_entry_plain(fm.ftab12_rows, w12, fm.wide)
+            ft12, fb12 = tables.ftab12(w12)
             go12 = use12 & (fb12 > ft12)
             empty12 = use12 & ~go12
             ft = torch.where(go12, ft12, ft)
@@ -185,15 +221,13 @@ def search_plain(fm: DeviceFMIndex, reads: torch.Tensor,
         t2 = tp.clone()
         b2 = bt.clone()
         idx = torch.nonzero(need)[:, 0]
-        t2[idx] = f[ch[idx]] + rank_plain(fm.blocks, zoff, tp[idx], ch[idx],
-                                          counts)
+        t2[idx] = f[ch[idx]] + tables.rank(tp[idx], ch[idx])
         idx_m = torch.nonzero(multi)[:, 0]
-        b2[idx_m] = f[ch[idx_m]] + rank_plain(fm.blocks, zoff, bt[idx_m],
-                                              ch[idx_m], counts)
+        b2[idx_m] = f[ch[idx_m]] + tables.rank(bt[idx_m], ch[idx_m])
         b2 = torch.where(single, t2 + 1, b2)
         bwtc = torch.full_like(ch, -1)
         idx_s = torch.nonzero(need & single)[:, 0]
-        bwtc[idx_s] = bwt_at_plain(fm.blocks, tp[idx_s])
+        bwtc[idx_s] = tables.bwt(tp[idx_s])
         fail = stepping & (
             (ch > 3)
             | (single & ((bwtc != ch) | (tp == zoff)))
@@ -240,7 +274,7 @@ def search_plain(fm: DeviceFMIndex, reads: torch.Tensor,
         bot[a] = torch.where(go, fb, torch.where(adv, b2, bt))
         no12[a] = torch.where(empty12, True, torch.where(emit | go, False,
                                                          nz))
-    idt = fm.row_dtype
+    idt = tables.row_dtype
     i32 = torch.int32
     return [h_top.to(idt), h_bot.to(idt), h_off.to(i32), h_len.to(i32),
             nhits.to(i32), sums.to(i32)]
@@ -464,6 +498,7 @@ class BatchSearchEngine:
         self.increment = 10 if 2 * min_hitlen <= 33 else 2 * min_hitlen - 33
         self.lane_bucket_lo = 256
         self.lmax_lo = 32
+        self.overflow_bucket_lo = 32   # lane bucket of the overflow re-run
         self.stats = {"upload_bytes": 0, "download_bytes": 0,
                       "ext_searches": 0, "ext_lanes": 0}
         # every launch on the engine's stream holds this lock: the main
@@ -636,27 +671,34 @@ class BatchSearchEngine:
         if over.shape[0]:
             # rare: a lane emitted more hits than the small buffer holds.
             # Re-run only those lanes, sized to the actual max hit count.
-            nover = _bucket(over.shape[0], lo=32)
-            mh2 = min(_bucket(int(out[4].max()), lo=2 * mh), lmax)
-            rseq2 = np.zeros((nover, rseqp.shape[1]), dtype=rseqp.dtype)
-            rseq2[: over.shape[0]] = rseqp[over]
-            lengths2 = np.zeros(nover, dtype=np.int32)
-            lengths2[: over.shape[0]] = lengths[over]
-            full = self._run(rseq2, lengths2,
-                             np.zeros(nover, dtype=np.int32), mh2, False,
-                             lmax)
-            wide = [np.zeros((nlanes, mh2), a.dtype) if a.ndim == 2 else a
-                    for a in out]
-            for k in range(4):
-                w = out[k].shape[1]
-                wide[k][:, :w] = out[k]
-                wide[k][over] = full[k][: over.shape[0]]
-            wide[4] = out[4].copy()
-            wide[4][over] = full[4][: over.shape[0]]
-            wide[5] = out[5].copy()
-            wide[5][over] = full[5][: over.shape[0]]
-            out = wide
+            out = self._rerun_overflow(
+                out, over, _bucket(over.shape[0],
+                                   lo=self.overflow_bucket_lo),
+                min(_bucket(int(out[4].max()), lo=2 * mh), lmax), rseqp,
+                lengths, lmax, nlanes)
         return out
+
+    def _rerun_overflow(self, out, over, nover, mh2, rseqp, lengths, lmax,
+                        nlanes):
+        """The lanes `over` re-run in a bucket of nover lanes with mh2 hit
+        slots; every array widened to mh2 (other lanes' new slots 0)."""
+        rseq2 = np.zeros((nover, rseqp.shape[1]), dtype=rseqp.dtype)
+        rseq2[: over.shape[0]] = rseqp[over]
+        lengths2 = np.zeros(nover, dtype=np.int32)
+        lengths2[: over.shape[0]] = lengths[over]
+        full = self._run(rseq2, lengths2, np.zeros(nover, dtype=np.int32),
+                         mh2, False, lmax)
+        wide = [np.zeros((nlanes, mh2), a.dtype) if a.ndim == 2 else a
+                for a in out]
+        for k in range(4):
+            w = out[k].shape[1]
+            wide[k][:, :w] = out[k]
+            wide[k][over] = full[k][: over.shape[0]]
+        wide[4] = out[4].copy()
+        wide[4][over] = full[4][: over.shape[0]]
+        wide[5] = out[5].copy()
+        wide[5][over] = full[5][: over.shape[0]]
+        return wide
 
     def search_first_hits(self, seqs: List[np.ndarray], offsets: np.ndarray):
         """One partialSearch per lane from the given offsets (the

@@ -19,8 +19,14 @@ on the card (K5 + K3), the tail serves rows from that prefetch, resolves
 the rest with the device resolver (K3) and searches extension misses
 with the engine's first-hit search (K1).
 
-The JAX package's counterpart is classify/tpu_pipeline.py, single-device
-branch; its mesh and multi-host paths are not part of this package.
+With a mesh (parallel/sharded.py), the search runs data-parallel over
+the mesh's dp rows and BWT-range-sharded over its fm axis (K6), and the
+device resolver is K6's sharded walk; the host tail is the same, so the
+rows are too. parallel/multihost.py wires the same engine into a
+pipeline per process, with a cross-process max (`sync`) that fixes the
+padded shapes and the number of extension rounds.
+
+The JAX package's counterpart is classify/tpu_pipeline.py.
 """
 
 from __future__ import annotations
@@ -63,11 +69,20 @@ class GPUClassificationPipeline:
 
     def __init__(self, idx: CFIndex, cfg: Optional[PipelineConfig] = None,
                  device="cuda", wide=None,
-                 dfm: Optional[DeviceFMIndex] = None):
+                 dfm: Optional[DeviceFMIndex] = None, mesh=None,
+                 n_fm: int = None):
         """device: where the index and the search run ("cuda" by default;
         "cpu" runs the plain PyTorch versions). A prebuilt `dfm` skips the
-        packing and upload, so several pipelines can share one index."""
+        packing and upload, so several pipelines can share one index.
+
+        mesh: a parallel.sharded.Mesh (make_mesh) of devices of the type of
+        `device`: the search and the device resolve run over it, the index
+        split n_fm ways (default: the mesh's fm axis). With host_resolve
+        the host walk reads the sharded arrays' blocks."""
         cfg = cfg or PipelineConfig()
+        if mesh is not None:
+            self._init_mesh(idx, cfg, device, mesh, n_fm, wide)
+            return
         if dfm is None:
             dfm = DeviceFMIndex.build(idx, device=device, wide=wide,
                                       keep_host_blocks=cfg.host_resolve)
@@ -90,13 +105,45 @@ class GPUClassificationPipeline:
                 from ..utils.fallback import warn_fallback
                 warn_fallback("fmwalk.cpp (HostResolver)", e)
 
-    def _init_with_engine(self, idx, cfg, engine, resolver, dfm=None):
-        """Wire the (engine, resolver) pair into the shared host pipeline."""
+    def _init_mesh(self, idx, cfg, device, mesh, n_fm, wide) -> None:
+        """The mesh branch of tpu_pipeline.py:54-88."""
+        import torch
+        from ..parallel.sharded import (MeshIndex, ShardedFMArrays,
+                                        ShardedSearchEngine,
+                                        make_sharded_resolver)
+        kind = torch.device(device).type
+        if any(d.type != kind for row in mesh.devices for d in row):
+            raise ValueError(f"the mesh's devices are not {kind} devices")
+        n_fm = n_fm or mesh.n_fm
+        sharr = ShardedFMArrays.build(idx, n_fm, wide=wide)
+        index = MeshIndex(sharr, mesh)
+        engine = ShardedSearchEngine(index, cfg.classifier.min_hitlen)
+        self._init_with_engine(idx, cfg, engine, make_sharded_resolver(index))
+        self.metrics.ebwt_bytes = int(index.nbytes)
+        self.mesh_index = index
+        # the sharded engine does not presolve
+        self.presolve = False
+        if cfg.host_resolve:
+            try:
+                from ..native.fmwalk import HostResolver
+                # the fm-padded blocks: HostResolver counts the real ones
+                self.resolver = HostResolver(sharr.blocks, idx, sharr.wide)
+            except (ImportError, OSError, RuntimeError) as e:
+                from ..utils.fallback import warn_fallback
+                warn_fallback("fmwalk.cpp (sharded HostResolver)", e)
+
+    def _init_with_engine(self, idx, cfg, engine, resolver, dfm=None,
+                          sync=None):
+        """Wire the (engine, resolver) pair into the shared host pipeline.
+        `sync` is the cross-process max of a host scalar (multihost.py):
+        with it, every process runs the same number of extension rounds
+        and resolve calls, and batches run without the tail thread."""
         self.idx = idx
         self.cfg = cfg
         self.dfm = dfm
         self.engine = engine
         self.resolver = resolver
+        self.sync = sync
         # the in-dispatch presolve (K5 + K3); off once a host resolver
         # takes over (__init__)
         self.presolve = True
@@ -298,7 +345,8 @@ class GPUClassificationPipeline:
         thread launches the searches, ONE worker runs the host tail
         FIFO, so output order and the species state remain
         deterministic."""
-        if self.native is not None and self.cfg.threaded_stream:
+        if self.native is not None and self.cfg.threaded_stream \
+                and self.sync is None:
             yield from self._stream_overlap(batches, paired=False)
             return
         from collections import deque
@@ -463,14 +511,14 @@ class GPUClassificationPipeline:
                     arrays, lane_map, lane_seqs, units,
                     [False] * len(units), seeds, self.engine,
                     self.resolver, [r.name for r in recs], qlens,
-                    self.metrics, prefetch=prefetch,
+                    self.metrics, prefetch=prefetch, round_sync=self.sync,
                     mate_len=ml)
                 self._tally_flat(passes, qlens, unit_nres)
                 return rows
             per_unit, secbest = self.native.process(
                 arrays, lane_map, lane_seqs, units,
                 [False] * len(units), seeds, self.engine, self.resolver,
-                self.metrics, prefetch=prefetch)
+                self.metrics, prefetch=prefetch, round_sync=self.sync)
             return self._emit_rows_preselected(recs, passes, per_unit,
                                                secbest)
         results = self._classify_units(
@@ -511,7 +559,7 @@ class GPUClassificationPipeline:
             for pairs in batches:
                 yield self.classify_batch_paired(pairs)
             return
-        if self.cfg.threaded_stream:
+        if self.cfg.threaded_stream and self.sync is None:
             yield from self._stream_overlap(batches, paired=True)
             return
         from collections import deque
@@ -639,14 +687,15 @@ class GPUClassificationPipeline:
             rows, unit_nres, secbest = self.native.process_rows(
                 arrays, lane_map, lane_seqs, units, paired_flags, seeds,
                 self.engine, self.resolver, [r1.name for r1, _ in pairs],
-                qlens, self.metrics, prefetch=prefetch, mate_len=mate_len)
+                qlens, self.metrics, prefetch=prefetch, round_sync=self.sync,
+                mate_len=mate_len)
             self._tally_flat([p1 or p2 for p1, p2 in passes], qlens,
                              unit_nres, paired_flags=paired_flags)
             return rows
         per_unit, secbest = self.native.process(
             arrays, lane_map, lane_seqs, units, paired_flags, seeds,
             self.engine, self.resolver, self.metrics, prefetch=prefetch,
-            mate_len=mate_len)
+            round_sync=self.sync, mate_len=mate_len)
         return self._emit_rows_paired(pairs, passes, per_unit, secbest)
 
     def classify_batch_paired(self, pairs: Sequence[Tuple[ReadRec, ReadRec]]

@@ -8,7 +8,8 @@
 // row pays the longest walk of its batch; the two-phase variant compacts
 // the survivors to cut that tail. Here each thread stops at its own exit
 // (fm_common.cuh resolve_row), which gives the single-phase outputs,
-// including the -1 of a row still unresolved after 8 * max_steps steps.
+// including the -1 of a row still unresolved after max_steps steps
+// rounded up to a multiple of 8.
 //
 // Bound on an H100: each LF step reads one BWT word and ranks in the
 // same block row (occ checkpoint and the words before the row), at a

@@ -349,7 +349,16 @@ class DeviceFMIndex:
 
 # ---- K3: SA row -> sequence index ----
 
-RESOLVE_MAX_STEPS = 4096   # walk iterations of 8 LF steps (fm_jax's)
+RESOLVE_MAX_STEPS = 4096   # fm_jax's LF step bound
+RESOLVE_UNROLL = 8         # fm_jax's steps per while-loop iteration
+
+
+def walk_budget(max_steps: int, unroll: int = RESOLVE_UNROLL) -> int:
+    """The LF steps a JAX resolve walk takes at most: its while_loop runs
+    `unroll` steps per iteration, counts steps and tests max_steps once per
+    iteration, so it stops after max_steps rounded up to a multiple of the
+    unroll."""
+    return -(-max_steps // unroll) * unroll
 
 
 def try_offset_plain(fm: DeviceFMIndex, rows: torch.Tensor,
@@ -385,8 +394,9 @@ def resolve_rows_plain(fm: DeviceFMIndex, rows: torch.Tensor,
                        max_steps: int = RESOLVE_MAX_STEPS,
                        stats: dict = None) -> torch.Tensor:
     """Plain PyTorch K3: a lockstep LF walk over the rows not yet
-    resolved, for at most 8 * max_steps steps (the JAX walk's 8 unrolled
-    steps per counted iteration); -1 for rows still unresolved then.
+    resolved, for at most walk_budget(max_steps) steps (the JAX walk's
+    bound, tested once per 8 unrolled steps); -1 for rows still
+    unresolved then.
     Returns int32 [N]. stats (optional dict) receives the kernel's
     lookups for these rows: `bwt_rows` and `rank_rows`/`rank_chars` of
     every LF step and `offs` of every sample read."""
@@ -395,7 +405,7 @@ def resolve_rows_plain(fm: DeviceFMIndex, rows: torch.Tensor,
     f = fm.fchr.to(torch.int64)
     counts = word_counts(fm.blocks)
     act = torch.nonzero(t < 0)[:, 0]
-    for _ in range(8 * max_steps):
+    for _ in range(walk_budget(max_steps)):
         if act.numel() == 0:
             break
         ra = r[act]

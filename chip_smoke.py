@@ -16,13 +16,25 @@ JSON line; any failure exits non-zero:
             synth reads, deep or not, min_hitlen 16 and 22; the SA
             resolve walk (K3) on 65,536 random rows and the edge rows, at
             the full step budget and at max_steps=1; the presolve (K5,
-            then K3) on the synth lane sets, khits 5 and 16
+            then K3) on the synth lane sets, khits 5 and 16; K6's sharded
+            search (synth lane sets, min_hitlen 16 and 22, first hits) and
+            sharded walk (edge rows and 65,536 random rows, max_steps
+            4096 and 1) on (2, 2) and (1, 4) meshes of cuda:0, narrow and
+            wide, and across cards when there are several
   synth     the classify CLI on the card (host resolve), then
             GPUClassificationPipeline with host_resolve=False (device
             resolve): unpaired output and report and paired output
             byte-equal to the reference goldens; once more with the
             presolve off, so the tail thread resolves every row on the
             card
+  synth_sharded  GPUClassificationPipeline over meshes that repeat
+            cuda:0 ((2, 2) narrow unpaired + report, (1, 4) wide paired),
+            host and device resolve: byte-equal to the goldens, K6
+            launched and no single-device kernel
+  multihost two processes on cuda:0 joined by gloo
+            (parallel/multihost.py, a (1, 2) wide mesh each) classify
+            the two halves of the synth reads: merged rows equal the
+            golden rows
   full      the 256 Mbp production-regime database generated from its
             seed (evaluation/bigdb.py: 64 x 4 Mbp genomes, 100k 100 bp
             reads), built into .chip_smoke_cache/, streamed through
@@ -36,6 +48,11 @@ JSON line; any failure exits non-zero:
             their plain versions and bounds (K0 on K4's level-1 queries,
             K1 and K5 on the first batch, K3 on that batch's presolve
             rows), peak device memory
+  full_sharded  the same reads through a (1, 4) mesh of cuda:0 (K6),
+            host and device resolve, each stream byte-equal to the
+            single-device host-resolve stream; K6's search on the first
+            batch and its walk on that batch's presolve rows, timed
+            beside their plain versions and bounds
 
 Then one JSON line of per-kernel numbers, the card's nvidia-smi line,
 and last {"ok": true, "device": {...}}. It takes no arguments.
@@ -54,6 +71,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(REPO, "tests", "fixtures", "synth")
@@ -97,13 +115,52 @@ KERNELS = {
                     replaces="centrifuge_tpu/ops/fm_jax.py:611"),
     "presolve": dict(source="centrifuge_tpu_torch/csrc/presolve.cu",
                      replaces="centrifuge_tpu/classify/engine.py:868"),
+    "sharded_search": dict(source="centrifuge_tpu_torch/csrc/sharded.cu",
+                           replaces="centrifuge_tpu/parallel/sharded.py:358"),
+    "sharded_resolve": dict(source="centrifuge_tpu_torch/csrc/sharded.cu",
+                            replaces="centrifuge_tpu/parallel/sharded.py:405"),
 }
 # the kernels each path launches, counted from 0 just before it
 HOST_RESOLVE_PATH = ("rank", "ftab12", "search")
 DEVICE_RESOLVE_PATH = ("search", "presolve", "resolve")
+MESH_HOST_PATH = ("sharded_search",)
+MESH_DEVICE_PATH = ("sharded_search", "sharded_resolve")
+SINGLE_DEVICE = ("rank", "ftab12", "search", "presolve", "resolve")
+MESH_FM = 4                    # full_sharded's (1, 4) mesh
 NO_LIBRARY = ("no single PyTorch call computes a batched BWT rank, a "
               "greedy FM search, an FM-index ftab extension, an LF walk "
-              "to an SA sample or the presolve's pick")
+              "to an SA sample, the presolve's pick or their sharded "
+              "forms")
+
+
+# one process of chip_smoke's multihost phase: argv = repo, process id,
+# process count, port, output file, device; prints its launch counts last
+MULTIHOST_WORKER = r"""
+import json, os, sys
+repo, pid, nproc, port, out, dev = sys.argv[1:7]
+sys.path.insert(0, repo)
+from centrifuge_tpu_torch import _cuda
+from centrifuge_tpu_torch.index.cf_io import load_cf_index
+from centrifuge_tpu_torch.io.fastx import read_batch
+from centrifuge_tpu_torch.parallel import multihost
+multihost.initialize(f"localhost:{port}", int(nproc), int(pid))
+fix = os.path.join(repo, "tests", "fixtures", "synth")
+idx = load_cf_index(os.path.join(fix, "synth"))
+pipe = multihost.make_multihost_pipeline(idx, n_fm=2, wide=True,
+                                         devices=[dev, dev])
+mine = multihost.shard_reads(read_batch([os.path.join(fix, "reads.fq")]),
+                             int(pid), int(nproc))
+_cuda.reset_launches()
+rows = []
+for chunk in pipe.classify_stream_unpaired(
+        mine[i: i + 512] for i in range(0, len(mine), 512)):
+    rows += chunk
+with open(out, "w") as f:
+    f.write("\n".join(rows) + "\n")
+import torch.distributed as dist
+dist.destroy_process_group()
+print(json.dumps(_cuda.LAUNCHES))
+"""
 
 
 def load_port():
@@ -124,9 +181,11 @@ def load_port():
     from centrifuge_tpu_torch.io.fastx import read_batch, read_fastx
     from centrifuge_tpu_torch.ops import fm_torch, rank
     from centrifuge_tpu_torch.ops.fm_numpy import FMOracle
+    from centrifuge_tpu_torch.parallel import sharded
     from centrifuge_tpu_torch.report.writers import write_report
     from centrifuge_tpu_torch.utils.fallback import fallbacks
     return dict(np=np, torch=torch, cuda=_cuda, engine=engine,
+                sharded=sharded,
                 Pipe=GPUClassificationPipeline,
                 OraclePipe=ClassificationPipeline, Cfg=PipelineConfig,
                 cli=cli, bigdb=bigdb, load_cf_index=load_cf_index,
@@ -199,13 +258,15 @@ class Smoke:
         """(bytes, integer ops, popcounts) that the lookups recorded by a
         plain run need: each 32-byte sector of blocks, ftab, ftab12 and
         the SA samples that they touch counted once, however often it is
-        read."""
+        read. fm is a DeviceFMIndex, or sharded_tables() of a mesh index,
+        whose ftab holds (top, bot) pairs (`ftab_tb`)."""
         torch = self.torch
         i64 = torch.int64
         width = fm.blocks.shape[1] * 4
         word0 = (8 if fm.wide else 4) * 4
-        tables = dict(blocks=fm.blocks, ftab=fm.ftab_rows,
-                      ftab12=fm.ftab12_rows, offs=fm.offs)
+        pairs = getattr(fm, "ftab_tb", None)
+        tables = dict(blocks=fm.blocks, ftab=fm.ftab_rows if pairs is None
+                      else pairs, ftab12=fm.ftab12_rows, offs=fm.offs)
         seen = {k: torch.zeros(t.numel() * 4 // SECTOR + 1,
                                dtype=torch.bool, device=t.device)
                 for k, t in tables.items() if t is not None}
@@ -238,6 +299,9 @@ class Smoke:
         for key in ("ftab", "ftab12"):
             for fi in stats.get(key, []):
                 fi = fi.to(i64)
+                if key == "ftab" and pairs is not None:
+                    seen[key][fi * entry // SECTOR] = True
+                    continue
                 seen[key][((fi >> shift) * width
                            + (fi & ((1 << shift) - 1)) * entry)
                           // SECTOR] = True
@@ -245,6 +309,22 @@ class Smoke:
             seen["offs"][si.to(i64) * 4 // SECTOR] = True
         nbytes = SECTOR * sum(int(v.sum()) for v in seen.values())
         return nbytes, int_ops, popc
+
+    def sharded_tables(self, index):
+        """The shapes traffic() needs of a mesh index's tables, as the
+        fm-padded global tables that the shards slice: the bytes a shard
+        reads lie at the same offsets there."""
+        torch = self.torch
+        e = dict(device=index.device)
+        width = 40 if index.wide else 36
+        return types.SimpleNamespace(
+            blocks=torch.empty((index.nblk_per * index.n_fm, width),
+                               dtype=torch.int32, **e),
+            ftab_tb=torch.empty((index.nftab_per * index.n_fm, 2),
+                                dtype=index.row_dtype, **e),
+            ftab_rows=None, ftab12_rows=None,
+            offs=torch.empty(index.noffs_per * index.n_fm,
+                             dtype=torch.int32, **e), wide=index.wide)
 
     @staticmethod
     def bound(nbytes: int, int_ops: int, popc: int) -> dict:
@@ -282,7 +362,11 @@ class Smoke:
     def check_path(self, path: str, launches: dict, kernels,
                    absent=()) -> None:
         """Fail unless each kernel of a path was launched in its run, and
-        none of `absent` was."""
+        none of `absent` was; a mesh path (K6) launches no single-device
+        kernel, a single-device path no K6."""
+        mesh = any(k.startswith("sharded") for k in kernels)
+        absent = tuple(absent) + (SINGLE_DEVICE if mesh else
+                                  MESH_DEVICE_PATH)
         for k in kernels:
             if launches[k] <= 0:
                 fail(f"kernel {k} was not launched on the {path} path")
@@ -291,6 +375,27 @@ class Smoke:
                 fail(f"kernel {k} was launched on the {path} path")
         if self.m["fallbacks"]():
             fail(f"native fallbacks: {self.m['fallbacks']()}")
+
+    def golden_run(self, pipe, items, paired=False, size=1024) -> str:
+        """The output file a pipeline writes for the synth items."""
+        stream = pipe.classify_stream_paired if paired \
+            else pipe.classify_stream_unpaired
+        rows = [pipe.formatter.header()]
+        for chunk in stream([items[i: i + size]
+                             for i in range(0, len(items), size)]):
+            rows += chunk
+        return "\n".join(rows) + "\n"
+
+    @staticmethod
+    def same_golden(got: str, gold: str, what: str) -> None:
+        with open(os.path.join(FIX, gold)) as f:
+            if got != f.read():
+                fail(f"{gold}: {what} differs")
+
+    def mesh(self, n_dp: int, n_fm: int):
+        """A (n_dp, n_fm) mesh with every entry cuda:0."""
+        return self.m["sharded"].make_mesh(n_dp, n_fm,
+                                           [self.dev] * (n_dp * n_fm))
 
     def lanes_of(self, recs):
         seqs = []
@@ -429,6 +534,80 @@ class Smoke:
                            "khits 5 and 16)",
                   search_lanes_checked=n_checked))
 
+    def kernels_sharded(self) -> None:
+        """K6 against its plain versions on the synth index: the shards of
+        (2, 2) and (1, 4) meshes that repeat cuda:0, narrow and wide; when
+        the machine has several cards, meshes across them too."""
+        m, torch, np = self.m, self.torch, self.np
+        shd = m["sharded"]
+        idx = m["load_cf_index"](os.path.join(FIX, "synth"))
+        meshes = [("cuda:0 (2, 2)", self.mesh(2, 2)),
+                  ("cuda:0 (1, 4)", self.mesh(1, 4))]
+        cross = "not run: one card"
+        if self.count > 1:
+            cards = [torch.device("cuda", i) for i in range(self.count)]
+            nf = min(4, self.count)
+            meshes += [(f"{nf} cards (1, {nf})", shd.make_mesh(1, nf, cards)),
+                       (f"{self.count} cards ({self.count}, 1)",
+                        shd.make_mesh(self.count, 1, cards))]
+            cross = [name for name, _ in meshes[2:]]
+        rb = m["read_batch"]
+        sets = {
+            "reads": self.lanes_of(rb([os.path.join(FIX, "reads.fq")])),
+            "reads_n": self.lanes_of(rb([os.path.join(FIX, "reads_n.fq")])),
+            "pairs": self.lanes_of(rb([os.path.join(FIX, "reads_1.fq")])
+                                   + rb([os.path.join(FIX, "reads_2.fq")])),
+        }
+        g = np.random.default_rng(7)
+        rows_np = np.concatenate([
+            [0, idx.zoff, idx.bwt_len - 1],
+            idx.boundary_rows.astype(np.int64),
+            g.integers(0, idx.bwt_len, 65536)])
+        rows_np = rows_np[: rows_np.shape[0] // 12 * 12]   # any dp split
+        checked = []
+        for wide in (False, True):
+            qrows = torch.from_numpy(rows_np.astype(
+                np.int64 if wide else np.int32)).to(self.dev)
+            for name, mesh in meshes:
+                what = f"{name} wide={wide}"
+                index = shd.MeshIndex(
+                    shd.ShardedFMArrays.build(idx, mesh.n_fm, wide=wide),
+                    mesh)
+                eng = shd.ShardedSearchEngine(index)
+                pad = [np.zeros(0, np.uint8)] * (-len(sets["reads"])
+                                                 % mesh.n_dp)
+                for mhl in (16, 22):
+                    inc = 10 if 2 * mhl <= 33 else 2 * mhl - 33
+                    for sname, seqs in sets.items():
+                        reads, lens, st, _ = self.packed_lanes(
+                            eng, seqs + [np.zeros(0, np.uint8)]
+                            * (-len(seqs) % mesh.n_dp))
+                        args = (reads, lens, st, SEARCH_MH, mhl, inc, False)
+                        self.equal(f"sharded search {sname} {what} "
+                                   f"mhl={mhl}",
+                                   shd.sharded_search(index, *args),
+                                   shd.sharded_search_plain(index, *args))
+                seqs = sets["reads_n"] + pad
+                offs = np.random.default_rng(3).integers(
+                    0, 90, len(seqs)).astype(np.int32)
+                reads, lens, st, _ = self.packed_lanes(eng, seqs, offs)
+                args = (reads, lens, st, 1, 22, eng.increment, True)
+                self.equal(f"sharded first hits {what}",
+                           shd.sharded_search(index, *args),
+                           shd.sharded_search_plain(index, *args))
+                for steps in (shd.SHARDED_RESOLVE_MAX_STEPS, 1):
+                    self.equal(f"sharded resolve {what} max_steps={steps}",
+                               [shd.sharded_resolve(index, qrows, steps)],
+                               [shd.sharded_resolve_plain(index, qrows,
+                                                          steps)])
+                checked.append(what)
+        emit(dict(phase="kernels_sharded", checked=checked,
+                  search="equal on the synth lane sets (min_hitlen 16 and "
+                         "22, first hits)",
+                  resolve=f"equal on {rows_np.shape[0]} rows (max_steps "
+                          "4096 and 1)",
+                  cross_card=cross))
+
     def synth(self) -> None:
         m = self.m
         base = os.path.join(FIX, "synth")
@@ -470,20 +649,10 @@ class Smoke:
         pairs = list(zip(m["read_fastx"](os.path.join(FIX, "reads_1.fq")),
                          m["read_fastx"](os.path.join(FIX, "reads_2.fq"))))
 
-        def run(pipe, items, paired=False):
-            stream = pipe.classify_stream_paired if paired \
-                else pipe.classify_stream_unpaired
-            rows = [pipe.formatter.header()]
-            for chunk in stream([items[i: i + 1024]
-                                 for i in range(0, len(items), 1024)]):
-                rows += chunk
-            return "\n".join(rows) + "\n"
+        run = self.golden_run
 
         def same(got: str, gold: str, what: str) -> None:
-            with open(os.path.join(FIX, gold)) as f:
-                if got != f.read():
-                    fail(f"{gold}: the device-resolve path ({what}) "
-                         "differs")
+            self.same_golden(got, gold, f"the device-resolve path ({what})")
 
         out = {}
         cuda.reset_launches()
@@ -513,6 +682,96 @@ class Smoke:
                   unpaired="byte-equal", report="byte-equal",
                   paired="byte-equal", presolve_off="byte-equal",
                   tail_resolved_rows=pipe.metrics.resolve_rows, **out))
+
+    def synth_sharded(self) -> None:
+        """The goldens through GPUClassificationPipeline over meshes that
+        repeat cuda:0: unpaired rows and report on a (2, 2) narrow mesh,
+        paired rows on a (1, 4) wide mesh, with host and device resolve;
+        each run launches K6 and no single-device kernel."""
+        m = self.m
+        cuda = m["cuda"]
+        idx = m["load_cf_index"](os.path.join(FIX, "synth"))
+        recs = m["read_batch"]([os.path.join(FIX, "reads.fq")])
+        pairs = list(zip(m["read_fastx"](os.path.join(FIX, "reads_1.fq")),
+                         m["read_fastx"](os.path.join(FIX, "reads_2.fq"))))
+        out = {}
+        for hr in (True, False):
+            path = "host" if hr else "device"
+            what = f"the mesh pipeline ({path} resolve"
+            cuda.reset_launches()
+            pipe = m["Pipe"](idx, m["Cfg"](host_resolve=hr), device=self.dev,
+                             mesh=self.mesh(2, 2))
+            self.same_golden(self.golden_run(pipe, recs),
+                             "golden_output.tsv", what + ", unpaired)")
+            with tempfile.TemporaryDirectory() as td:
+                rep = os.path.join(td, "rep.tsv")
+                m["write_report"](rep, idx, pipe.spm,
+                                  abundance_analysis=True)
+                with open(rep) as f:
+                    self.same_golden(f.read(), "golden_report.tsv",
+                                     what + ", report)")
+            pipe = m["Pipe"](idx, m["Cfg"](host_resolve=hr), device=self.dev,
+                             mesh=self.mesh(1, 4), wide=True)
+            self.same_golden(self.golden_run(pipe, pairs, paired=True),
+                             "golden_paired.tsv", what + ", paired)")
+            out[f"launches_{path}_resolve"] = dict(cuda.LAUNCHES)
+            self.check_path(
+                f"synth mesh {path}-resolve", cuda.LAUNCHES,
+                MESH_HOST_PATH if hr else MESH_DEVICE_PATH,
+                absent=("sharded_resolve",) if hr else ())
+        emit(dict(phase="synth_sharded", meshes=["(2, 2) narrow unpaired",
+                                                 "(1, 4) wide paired"],
+                  unpaired="byte-equal", report="byte-equal",
+                  paired="byte-equal", **out))
+
+    def multihost(self) -> None:
+        """Two processes on cuda:0, joined by gloo for the host scalars,
+        each classifying its half of the synth reads over a (1, 2) wide
+        mesh (parallel/multihost.py); the merged rows equal the golden
+        rows."""
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = []
+        with tempfile.TemporaryDirectory() as td:
+            outs = [os.path.join(td, f"shard{p}.tsv") for p in range(2)]
+            t0 = time.perf_counter()
+            try:
+                for pid, out in enumerate(outs):
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", MULTIHOST_WORKER, REPO,
+                         str(pid), "2", str(port), out, str(self.dev)],
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True))
+                results = [p.communicate(timeout=300) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for p, (so, se) in zip(procs, results):
+                if p.returncode:
+                    fail(f"multihost worker exit {p.returncode}: "
+                         f"{se[-2000:]}")
+            launches = [json.loads(so.strip().splitlines()[-1])
+                        for so, _ in results]
+            merged = []
+            for out in outs:
+                with open(out) as f:
+                    merged += f.read().splitlines()
+        for ln in launches:
+            self.check_path("multihost", ln, MESH_DEVICE_PATH)
+        with open(os.path.join(FIX, "golden_output.tsv")) as f:
+            golden = f.read().splitlines()[1:]
+        ids = {r.split("\t", 1)[0] for r in merged}
+        if merged != [r for r in golden if r.split("\t", 1)[0] in ids] \
+                or len(ids) != 3000:
+            fail("multihost: the merged rows differ from the golden rows")
+        emit(dict(phase="multihost", processes=2, mesh_per_process=[1, 2],
+                  rows="merged rows equal the golden rows",
+                  reads=len(ids), seconds=round(time.perf_counter() - t0, 3),
+                  launches=launches))
 
     def full(self) -> None:
         m, torch, np = self.m, self.torch, self.np
@@ -684,6 +943,10 @@ class Smoke:
             plain_ms=plain_ms, library_ms=None, rows=flat.numel(),
             lf_steps=steps, unresolved=int((tidx < 0).sum()),
             **self.bound(nbytes + io, int_ops, popc))
+        # what full_sharded runs again over the mesh
+        self.full_state = dict(idx=idx, batches=batches, rows=rows,
+                               hits=[t.clone() for t in got], flat=flat,
+                               tidx=tidx)
 
         # ---- K4 against its plain version ----
         t0v, b0v = fm.ftab_top[:fmt.N10], fm.ftab_bot[:fmt.N10]
@@ -756,6 +1019,120 @@ class Smoke:
                   card=self.smi))
 
 
+    def full_sharded(self) -> None:
+        """The 256 Mbp stream through a (1, 4) mesh of cuda:0, host and
+        device resolve, each byte-equal to the single-device host-resolve
+        stream; then K6's search on the first batch and its walk on that
+        batch's presolve rows, beside their plain versions, bounds and
+        the single-device kernels' outputs."""
+        m, torch = self.m, self.torch
+        shd, eng_mod, cuda = m["sharded"], m["engine"], m["cuda"]
+        st = self.full_state
+        idx, batches = st["idx"], st["batches"]
+        nreads = sum(len(b) for b in batches)
+        mesh = self.mesh(1, MESH_FM)
+        pipes = {}
+        for hr in (True, False):
+            path = "host" if hr else "device"
+            torch.cuda.reset_peak_memory_stats()
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            pipe = m["Pipe"](idx, m["Cfg"](host_resolve=hr), device=self.dev,
+                             mesh=mesh)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rows = []
+            for chunk in pipe.classify_stream_unpaired(batches):
+                rows += chunk
+            t2 = time.perf_counter()
+            launches = dict(cuda.LAUNCHES)
+            self.check_path(f"mesh {path}-resolve", launches,
+                            MESH_HOST_PATH if hr else MESH_DEVICE_PATH,
+                            absent=("sharded_resolve",) if hr else ())
+            self.same_rows(f"mesh {path}-resolve", rows, st["rows"])
+            pm = pipe.metrics
+            pipes[hr] = (pipe, launches)
+            emit(dict(phase="full_sharded", mesh=[1, MESH_FM],
+                      resolve=path, reads=nreads,
+                      rows="byte-equal to the single-device host-resolve "
+                           "stream",
+                      index_to_device_s=round(t1 - t0, 3),
+                      stream_s=round(t2 - t1, 3),
+                      reads_per_s=round(nreads / (t2 - t1), 1),
+                      launches=launches,
+                      index_mb=round(pipe.mesh_index.nbytes / 1e6, 1),
+                      max_memory_allocated=int(
+                          torch.cuda.max_memory_allocated()),
+                      collect_wait_s=round(pm.collect_wait_secs, 3),
+                      tail_wait_s=round(pm.tail_wait_secs, 3),
+                      tail_run_s=round(pm.tail_run_secs, 3),
+                      resolve_rows=pm.resolve_rows, ext_lanes=pm.ext_lanes))
+
+        # ---- K6's search on the first batch, against its plain version
+        # and K1's outputs on the same lanes ----
+        pipe = pipes[True][0]
+        index, eng = pipe.mesh_index, pipe.engine
+        seqs = self.lanes_of(batches[0])
+        reads, lens, st0, _ = self.packed_lanes(eng, seqs)
+        args = (reads, lens, st0, SEARCH_MH, eng.min_hitlen, eng.increment,
+                False)
+        before = cuda.LAUNCHES["sharded_search"]
+        got = shd.sharded_search(index, *args)
+        per_batch = cuda.LAUNCHES["sharded_search"] - before
+        steps = (per_batch - 1) // (MESH_FM + 1)
+        want, plain_ms = self.time_host(
+            lambda: shd.sharded_search_plain(index, *args))
+        err = self.equal("sharded search (full batch)", got, want)
+        self.equal("sharded search vs K1 (full batch)", got, st["hits"])
+        ms = self.time_cuda(lambda: shd.sharded_search(index, *args), 3)
+        _, host_ms = self.time_host(lambda: shd.sharded_search(index, *args))
+        stats = {}
+        shd.sharded_search_plain(index, *args, stats=stats)
+        tables = self.sharded_tables(index)
+        nbytes, int_ops, popc = self.traffic(tables, stats)
+        del stats
+        rsz = 8 if index.wide else 4
+        L = len(seqs)
+        io = (reads.numel() + 8 * L + L * SEARCH_MH * (2 * rsz + 8)
+              + 8 * L + 5 * rsz)
+        self.rows["sharded_search"].update(
+            launches=pipes[True][1]["sharded_search"], max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, library_ms=None, lanes=L,
+            mesh=[1, MESH_FM], steps_per_batch=steps,
+            launches_per_batch=per_batch, ms_per_step=ms / max(steps, 1),
+            host_clock_ms=host_ms, **self.bound(nbytes + io, int_ops, popc))
+
+        # ---- K6's walk on that batch's presolve rows, against its plain
+        # version and K3's values ----
+        flat = st["flat"]
+        before = cuda.LAUNCHES["sharded_resolve"]
+        tidx = shd.sharded_resolve(index, flat)
+        per_call = cuda.LAUNCHES["sharded_resolve"] - before
+        want, plain_ms = self.time_host(
+            lambda: shd.sharded_resolve_plain(index, flat))
+        err = self.equal("sharded resolve (full batch)", [tidx], [want])
+        self.equal("sharded resolve vs K3 (full batch)", [tidx],
+                   [st["tidx"]])
+        ms = self.time_cuda(lambda: shd.sharded_resolve(index, flat), 5)
+        stats = {}
+        shd.sharded_resolve_plain(index, flat, stats=stats)
+        lf_steps = sum(r.numel() for r in stats.get("bwt_rows", []))
+        nbytes, int_ops, popc = self.traffic(tables, stats)
+        del stats, tables
+        io = (flat.numel() * (rsz + 4)
+              + index.rows[0].brows.numel() * (rsz + 4) + 5 * rsz)
+        self.rows["sharded_resolve"].update(
+            launches=pipes[False][1]["sharded_resolve"], max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, library_ms=None, rows=flat.numel(),
+            mesh=[1, MESH_FM], lf_steps=lf_steps,
+            steps_per_call=per_call // (MESH_FM + 1),
+            launches_per_call=per_call,
+            **self.bound(nbytes + io, int_ops, popc))
+        emit(dict(phase="full_sharded_kernels", card=self.smi,
+                  search_steps_per_batch=steps,
+                  search_ms=self.rows["sharded_search"]["ms"],
+                  resolve_ms=ms))
+
 def main(argv) -> int:
     if argv:
         print("usage: chip_smoke.py (no arguments)", file=sys.stderr)
@@ -772,7 +1149,8 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     s = Smoke(m)
-    for phase in (s.env, s.kernels, s.synth, s.full):
+    for phase in (s.env, s.kernels, s.kernels_sharded, s.synth,
+                  s.synth_sharded, s.multihost, s.full, s.full_sharded):
         phase()
     emit({"kernels": list(s.rows.values())})
     print(s.smi, flush=True)

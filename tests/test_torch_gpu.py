@@ -205,3 +205,132 @@ def test_threads_share_the_card(cuda, port_index):
             assert all(f.result(timeout=300) for f in futs)
     finally:
         sys.setswitchinterval(old)
+
+
+@pytest.mark.parametrize("dp,n_fm,wide", [(1, 2, False), (2, 2, True),
+                                          (1, 4, False), (1, 4, True)])
+def test_sharded_kernels_match_plain(cuda, port_index, dp, n_fm, wide):
+    """K6 with every shard on one card (a mesh that repeats cuda:0): the
+    search on the synth lanes (min_hitlen 16 and 22, and first-hit mode
+    from offsets) and the resolve walk on the edge rows and 65,536 random
+    rows (full budget and max_steps=1), each against its plain version on
+    the same card, and the search against K1 on the unsharded index."""
+    from centrifuge_tpu_torch import _cuda
+    from centrifuge_tpu_torch.classify.engine import (BatchSearchEngine,
+                                                      search_lanes)
+    from centrifuge_tpu_torch.io.fastx import read_batch
+    from centrifuge_tpu_torch.ops.fm_torch import DeviceFMIndex
+    from centrifuge_tpu_torch.parallel.sharded import (
+        MeshIndex, ShardedFMArrays, make_mesh, sharded_resolve,
+        sharded_resolve_plain, sharded_search, sharded_search_plain)
+    index = MeshIndex(ShardedFMArrays.build(port_index, n_fm, wide=wide),
+                      make_mesh(dp, n_fm, [cuda] * (dp * n_fm)))
+    fm = DeviceFMIndex.build(port_index, device=cuda, wide=wide,
+                             deep_ftab=False)
+    seqs = []
+    for r in read_batch([os.path.join(SYNTH, "reads_n.fq")]):
+        seqs += [r.seq, r.revcomp()]
+    eng = BatchSearchEngine(fm, 22)
+    rseqp, lengths = eng.pack_transport(seqs, 160, len(seqs))
+    reads = torch.from_numpy(rseqp).to(cuda)
+    lens = torch.from_numpy(lengths).to(cuda)
+    zero = torch.zeros(len(seqs), dtype=torch.int32, device=cuda)
+    offs = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 90, len(seqs)).astype(np.int32)).to(cuda)
+    _cuda.reset_launches()
+    for mhl, st, mh, first in ((16, zero, 16, False), (22, zero, 16, False),
+                               (22, offs, 1, True)):
+        inc = 10 if 2 * mhl <= 33 else 2 * mhl - 33
+        args = (reads, lens, st, mh, mhl, inc, first)
+        got = sharded_search(index, *args)
+        for k, p, s in zip(got, sharded_search_plain(index, *args),
+                           search_lanes(fm, *args, False)):
+            assert torch.equal(k, p) and torch.equal(k, s)
+    assert _cuda.LAUNCHES["sharded_search"] > 3 * (n_fm + 1)
+    g = np.random.default_rng(4)
+    rows = torch.from_numpy(np.concatenate([
+        [0, port_index.zoff, port_index.bwt_len - 1],
+        port_index.boundary_rows.astype(np.int64),
+        g.integers(0, port_index.bwt_len, 65536)])[:65536 + 24].astype(
+            np.int64 if wide else np.int32)).to(cuda)
+    for steps in (4096, 1):
+        want = sharded_resolve_plain(index, rows, steps)
+        assert torch.equal(sharded_resolve(index, rows, steps), want)
+        assert bool((want < 0).any()) == (steps == 1)
+    assert _cuda.LAUNCHES["sharded_resolve"] > 0
+
+
+def test_sharded_engine_matches_cpu_mesh(cuda, port_index):
+    """ShardedSearchEngine on a (2, 2) mesh of cuda:0 against the same
+    engine on a CPU mesh: search, first hits and the resolver."""
+    from centrifuge_tpu_torch.io.fastx import read_batch
+    from centrifuge_tpu_torch.parallel.sharded import (
+        MeshIndex, ShardedFMArrays, ShardedSearchEngine, make_mesh,
+        make_sharded_resolver)
+    seqs = []
+    for r in read_batch([os.path.join(SYNTH, "reads_n.fq")], limit=200):
+        seqs += [r.seq, r.revcomp()]
+    g = np.random.default_rng(9)
+    offs = np.array([g.integers(0, len(s)) for s in seqs], np.int32)
+    rows = g.integers(0, port_index.bwt_len, 1000).astype(np.int32)
+    sh = ShardedFMArrays.build(port_index, 2)
+    outs = []
+    for dev in (cuda, "cpu"):
+        index = MeshIndex(sh, make_mesh(2, 2, [dev] * 4))
+        eng = ShardedSearchEngine(index)
+        got, pre = eng.search_collect(eng.search_async(seqs, presolve=True),
+                                      len(seqs))
+        assert pre is None
+        outs.append(got + eng.search_first_hits(seqs, offs)
+                    + [make_sharded_resolver(index)(rows)])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_across_cards(cuda, port_index):
+    """K6 with its shards, and its dp rows, on different cards (peer
+    copies of the queries and partials): the search and the walk against
+    their plain versions, and the mesh engine and resolver against the
+    same engine on a CPU mesh. Skips on a machine with one card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    from centrifuge_tpu_torch.io.fastx import read_batch
+    from centrifuge_tpu_torch.parallel.sharded import (
+        MeshIndex, ShardedFMArrays, ShardedSearchEngine, make_mesh,
+        make_sharded_resolver, sharded_resolve, sharded_resolve_plain,
+        sharded_search, sharded_search_plain)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    seqs = []
+    for r in read_batch([os.path.join(SYNTH, "reads_n.fq")], limit=256):
+        seqs += [r.seq, r.revcomp()]
+    g = np.random.default_rng(5)
+    rows_np = g.integers(0, port_index.bwt_len, 4096)
+    shapes = [(1, min(n, 4)), (n, 1)] + ([(2, 2)] if n >= 4 else [])
+    for (dp, nf), wide in zip(shapes, (False, True, True)):
+        mesh = make_mesh(dp, nf, cards)
+        sh = ShardedFMArrays.build(port_index, nf, wide=wide)
+        index = MeshIndex(sh, mesh)
+        eng = ShardedSearchEngine(index)
+        rseqp, lengths = eng.pack_transport(seqs, 160, len(seqs))
+        args = (torch.from_numpy(rseqp).to(cuda),
+                torch.from_numpy(lengths).to(cuda),
+                torch.zeros(len(seqs), dtype=torch.int32, device=cuda), 16,
+                22, eng.increment, False)
+        for k, p in zip(sharded_search(index, *args),
+                        sharded_search_plain(index, *args)):
+            assert torch.equal(k, p)
+        rows = torch.from_numpy(rows_np.astype(
+            np.int64 if wide else np.int32)).to(cuda)
+        for steps in (4096, 1):
+            assert torch.equal(sharded_resolve(index, rows, steps),
+                               sharded_resolve_plain(index, rows, steps))
+        outs = []
+        for ix in (index, MeshIndex(sh, make_mesh(dp, nf,
+                                                  ["cpu"] * (dp * nf)))):
+            e = ShardedSearchEngine(ix)
+            got, _ = e.search_collect(e.search_async(seqs), len(seqs))
+            outs.append(got + [make_sharded_resolver(ix)(rows_np.astype(
+                np.int64 if wide else np.int32))])
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)

@@ -85,8 +85,10 @@ def _jax_resolve_args(j):
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
 def test_resolve_matches_jax(indexes, twin, wide):
     """make_resolver and the plain walk against the JAX resolver on 8192
-    random rows and the edge rows; then the walk cut to max_steps=1 (8
-    LF steps), which leaves rows at -1."""
+    random rows and the edge rows; then the walk cut short, which leaves
+    rows at -1: the JAX walk tests its step count once per 8 unrolled
+    steps, so max_steps 1 and 2 both stop after 8 LF steps and 9 after
+    16."""
     from centrifuge_tpu.ops.fm_jax import _resolve_rows
     from centrifuge_tpu.ops.fm_jax import make_resolver as jax_resolver
     from centrifuge_tpu_torch.ops.fm_torch import (make_resolver,
@@ -104,12 +106,16 @@ def test_resolve_matches_jax(indexes, twin, wide):
     assert torch.equal(twin_resolve(twin, fm, t, 4096), torch.from_numpy(got))
 
     args, kw = _jax_resolve_args(j)
-    want1 = np.asarray(_resolve_rows(*args, jnp.asarray(rows), max_steps=1,
-                                     **kw))
-    assert (want1 == -1).any() and (want1 >= 0).any()
-    got1 = resolve_rows_plain(fm, t, max_steps=1)
-    np.testing.assert_array_equal(got1.numpy(), want1)
-    assert torch.equal(twin_resolve(twin, fm, t, 1), got1)
+    cut = {}
+    for steps in (1, 2, 9):
+        want1 = np.asarray(_resolve_rows(*args, jnp.asarray(rows),
+                                         max_steps=steps, **kw))
+        assert (want1 == -1).any() and (want1 >= 0).any()
+        got1 = resolve_rows_plain(fm, t, max_steps=steps)
+        np.testing.assert_array_equal(got1.numpy(), want1)
+        assert torch.equal(twin_resolve(twin, fm, t, steps), got1)
+        cut[steps] = int((want1 < 0).sum())
+    assert cut[1] == cut[2] > cut[9]
 
 
 @pytest.mark.parametrize("npat", [24, 0x10000], ids=["narrow_refs",

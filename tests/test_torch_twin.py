@@ -1,7 +1,9 @@
 """The CUDA kernels' per-lane arithmetic (csrc/fm_common.cuh), compiled
 for the host with g++ (csrc/cpu_twin.cpp), against the port's plain
 PyTorch versions: rank, the depth-12 ftab, the SA resolve walk and its
-exits, and the presolve pick here, the search in test_torch_engine.py.
+exits, the presolve pick, and K6's search and walk over BWT-range shards
+(its lane functions driven step by step as csrc/sharded.cu drives them)
+here, the search in test_torch_engine.py.
 Nothing else on a machine without nvcc compiles the code the card runs.
 Integers throughout: exact equality."""
 
@@ -27,6 +29,10 @@ _SIGS = {
     "resolve": [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I32,
                 _P, _P, _I64],
     "pick": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P],
+    "shard_search": [_P, _P, _P, _I64, _I64, _I64, _I32, _P, _I64, _P, _P,
+                     _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32],
+    "shard_resolve": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P, _I64,
+                      _I32, _I64, _P, _P, _I64],
 }
 
 
@@ -53,7 +59,8 @@ def build_twin(out_dir: str):
         for name, sig in _SIGS.items():
             fn = getattr(lib, f"twin_{name}_{kind}")
             fn.argtypes = sig
-            fn.restype = None
+            # the K6 twin loops return their step count
+            fn.restype = _I64 if name.startswith("shard") else None
     return lib
 
 
@@ -198,7 +205,8 @@ def test_twin_ftab12_matches_plain(twin, port_index, wide):
 def test_twin_resolve_matches_plain(twin, port_index, wide):
     """resolve_row and try_offset against the plain walk and exits, on
     the edge rows and every boundary row, at the full step budget and at
-    max_steps=2 (16 LF steps), which leaves rows unresolved."""
+    max_steps=2 (8 LF steps: the bound rounds up to the 8-step unroll),
+    which leaves rows unresolved."""
     from centrifuge_tpu_torch.ops.fm_torch import (DeviceFMIndex,
                                                    resolve_rows_plain,
                                                    try_offset_plain)
@@ -229,3 +237,91 @@ def test_twin_pick_matches_plain(twin, wide, khits):
     t_rows, t_n = twin_pick(twin, *hits, *args)
     assert torch.equal(t_rows, rows) and torch.equal(t_n, nrows)
     assert int(nrows.min()) < int(nrows.max())
+
+
+def twin_shard_search(lib, sh, reads, lengths, start, mh, min_hitlen,
+                      increment, first_hit_only):
+    """K6's search lane functions over the shards of a ShardedFMArrays
+    (the slices of its padded tables), on the host: (the 6 outputs of
+    sharded_search, the number of steps)."""
+    L = reads.shape[0]
+    idt = torch.int64 if sh.wide else torch.int32
+    outs = [torch.empty((L, mh), dtype=idt), torch.empty((L, mh), dtype=idt),
+            torch.empty((L, mh), dtype=torch.int32),
+            torch.empty((L, mh), dtype=torch.int32),
+            torch.empty(L, dtype=torch.int32),
+            torch.empty(L, dtype=torch.int32)]
+    tabs = [torch.from_numpy(a) for a in (sh.blocks.view(np.int32),
+                                          sh.ftab_tb, sh.fchr)]
+    fn = lib.twin_shard_search_wide if sh.wide \
+        else lib.twin_shard_search_narrow
+    steps = fn(*[ptr(t) for t in tabs], sh.zoff, sh.nblk_per, sh.nftab_per,
+               sh.n_fm, ptr(reads), reads.shape[1], ptr(lengths), ptr(start),
+               *[ptr(o) for o in outs], L, mh, min_hitlen, increment,
+               int(first_hit_only))
+    return outs, steps
+
+
+def twin_shard_resolve(lib, sh, rows, budget):
+    """K6's walk lane functions over the shards, on the host: (int32
+    values, steps)."""
+    tabs = [torch.from_numpy(a) for a in (
+        sh.blocks.view(np.int32), sh.offs, sh.fchr, sh.boundary_rows,
+        sh.boundary_refs)]
+    out = torch.empty(rows.shape, dtype=torch.int32)
+    fn = lib.twin_shard_resolve_wide if sh.wide \
+        else lib.twin_shard_resolve_narrow
+    steps = fn(*[ptr(t) for t in tabs[:3]], sh.zoff, sh.nblk_per,
+               sh.noffs_per, sh.n_fm, sh.offrate, ptr(tabs[3]), ptr(tabs[4]),
+               tabs[3].numel(), int(sh.npat <= 0xFFFF), budget, ptr(rows),
+               ptr(out), rows.numel())
+    return out, steps
+
+
+@pytest.mark.parametrize("n_fm,wide", [(2, False), (4, True)],
+                         ids=["fm2_narrow", "fm4_wide"])
+def test_twin_sharded_matches_plain(twin, port_index, n_fm, wide):
+    """K6's lane functions (search_partials/search_advance,
+    resolve_partials/resolve_advance), driven on the host over n_fm
+    shards, against the plain sharded search (full scans at min_hitlen
+    16 and 22, first hits from offsets) and walk (full budget and cut to
+    4 LF steps); each drive ends within its step bound."""
+    from centrifuge_tpu_torch.classify.engine import BatchSearchEngine
+    from centrifuge_tpu_torch.io.fastx import read_batch
+    from centrifuge_tpu_torch.ops.fm_torch import walk_budget
+    from centrifuge_tpu_torch.parallel.sharded import (
+        MeshIndex, ShardedFMArrays, make_mesh, sharded_resolve_plain,
+        sharded_search_plain)
+    sh = ShardedFMArrays.build(port_index, n_fm, wide=wide)
+    index = MeshIndex(sh, make_mesh(1, n_fm, ["cpu"] * n_fm))
+    seqs = []
+    for r in read_batch([fixture_path("synth", "reads_n.fq")], limit=128):
+        seqs += [r.seq, r.revcomp()]
+    rseqp, lengths = BatchSearchEngine(index).pack_transport(seqs, 160,
+                                                             len(seqs))
+    reads, lens = torch.from_numpy(rseqp), torch.from_numpy(lengths)
+    zero = torch.zeros(len(seqs), dtype=torch.int32)
+    offs = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 90, len(seqs)).astype(np.int32))
+    for mhl, start, mh, first in ((16, zero, 16, False),
+                                  (22, zero, 16, False),
+                                  (22, offs, 1, True)):
+        args = (reads, lens, start, mh, mhl,
+                10 if 2 * mhl <= 33 else 2 * mhl - 33, first)
+        want = sharded_search_plain(index, *args)
+        got, steps = twin_shard_search(twin, sh, *args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert 0 < steps < 4 * reads.shape[1]
+    rng = np.random.default_rng(6)
+    rows_np = np.concatenate([_edge_rows(port_index.bwt_len, sh.zoff, rng),
+                              sh.boundary_rows])
+    rows = torch.from_numpy(rows_np[rows_np < port_index.bwt_len].astype(
+        np.int64 if wide else np.int32))
+    for max_steps in (4096, 1):
+        want = sharded_resolve_plain(index, rows, max_steps)
+        got, steps = twin_shard_resolve(twin, sh, rows,
+                                        walk_budget(max_steps, 4))
+        assert torch.equal(got, want)
+        assert bool((want < 0).any()) == (max_steps == 1)
+        assert steps <= walk_budget(max_steps, 4) + 1

@@ -34,15 +34,9 @@ _RESOLVE = [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _P,
             _I64, _P]
 _PRESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
              _I64, _P]
-_SH_SEARCH_P = [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P,
-                _P, _I64, _P]
-_SH_SEARCH_A = [_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
-                _P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32,
-                _I32, _I32, _I32, _P, _P]
-_SH_RESOLVE_P = [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _P, _P, _P,
-                 _I64, _P]
-_SH_RESOLVE_A = [_I64, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P, _I32, _I64,
-                 _I64, _I64, _P, _P]
+_SH_SEARCH = [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
+              _I32, _I32, _P]
+_SH_RESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _I64, _P]
 SIGNATURES = {
     "rank": {"fm_rank_narrow": _RANK, "fm_rank_wide": _RANK},
     "search": {"fm_search_narrow": _SEARCH, "fm_search_wide": _SEARCH},
@@ -50,16 +44,15 @@ SIGNATURES = {
     "resolve": {"fm_resolve_narrow": _RESOLVE, "fm_resolve_wide": _RESOLVE},
     "presolve": {"fm_presolve_narrow": _PRESOLVE,
                  "fm_presolve_wide": _PRESOLVE},
-    "sharded": {f"fm_shard_{fn}_{kind}": sig
-                for fn, sig in (("search_partials", _SH_SEARCH_P),
-                                ("search_advance", _SH_SEARCH_A),
-                                ("resolve_partials", _SH_RESOLVE_P),
-                                ("resolve_advance", _SH_RESOLVE_A))
-                for kind in ("narrow", "wide")},
+    "sharded": {**{f"fm_shard_{fn}_{kind}": sig
+                   for fn, sig in (("search", _SH_SEARCH),
+                                   ("resolve", _SH_RESOLVE))
+                   for kind in ("narrow", "wide")},
+                "fm_shard_enable_peer": [_I32, _I32]},
 }
 
 # one count per kernel of the port; csrc/sharded.cu holds two, K6's
-# search (its partials and advance launches) and its resolve walk
+# search and its resolve walk (one launch per dp row each)
 KERNELS = ("rank", "search", "ftab12", "resolve", "presolve",
            "sharded_search", "sharded_resolve")
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -5,6 +5,11 @@
 // __host__ __device__, so the arithmetic the card runs is the arithmetic
 // the tests check.
 //
+// The search and the SA walk are one lane loop each (search_lane,
+// resolve_row), templated over a table reader: FlatTables, the tables of
+// one device (K1, K3), or ShardSet, the fm shards of one dp row of a mesh
+// (K6). Tables are read through the read-only path (ldg).
+//
 // Block layout (ops/fm_torch.pack_bwt_blocks): uint32 rows of 512 bases,
 //   narrow (R = int32_t): occ[4]              | words[32]   (36 words)
 //   wide   (R = int64_t): occ_lo[4] occ_hi[4] | words[32]   (40 words)
@@ -21,8 +26,10 @@
 
 #if defined(__CUDACC__)
 #define FM_HD __host__ __device__ __forceinline__
+#define FM_HDM __host__ __device__ __forceinline__
 #else
 #define FM_HD static inline
+#define FM_HDM inline
 #endif
 
 namespace fm {
@@ -43,6 +50,30 @@ struct Geo<int64_t> {
 };
 
 constexpr int kFtabChars = 10;
+
+// Loads of the index tables, which no kernel writes: the read-only
+// (non-coherent) path on the card.
+FM_HD uint32_t ldg(const uint32_t* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+FM_HD int32_t ldg(const int32_t* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+FM_HD int64_t ldg(const int64_t* p) {
+#if defined(__CUDA_ARCH__)
+  return (int64_t)__ldg((const long long*)p);
+#else
+  return *p;
+#endif
+}
 
 FM_HD int popc32(uint32_t x) {
 #if defined(__CUDA_ARCH__)
@@ -67,9 +98,9 @@ FM_HD int count_in_word(uint32_t word, uint32_t pattern, int nvalid) {
 template <typename R>
 FM_HD R occ_at(const uint32_t* row, int c) {
   if constexpr (sizeof(R) == 8) {
-    return (R)(((uint64_t)row[4 + c] << 32) | (uint64_t)row[c]);
+    return (R)(((uint64_t)ldg(row + 4 + c) << 32) | (uint64_t)ldg(row + c));
   } else {
-    return (R)row[c];
+    return (R)ldg(row + c);
   }
 }
 
@@ -82,8 +113,10 @@ FM_HD R rank_in_row(const uint32_t* row, R zoff, R r, int c) {
   const uint32_t pattern = (uint32_t)c * 0x55555555u;
   const int full = within >> 4;
   int cnt = 0;
-  for (int w = 0; w < full; ++w) cnt += count_in_word(words[w], pattern, 16);
-  if (within & 15) cnt += count_in_word(words[full], pattern, within & 15);
+  for (int w = 0; w < full; ++w)
+    cnt += count_in_word(ldg(words + w), pattern, 16);
+  if (within & 15)
+    cnt += count_in_word(ldg(words + full), pattern, within & 15);
   return occ_at<R>(row, c) + (R)cnt - (R)((c == 0 && zoff < r) ? 1 : 0);
 }
 
@@ -103,12 +136,8 @@ FM_HD R lf(const uint32_t* blocks, const R* fchr, R zoff, R r, int c) {
 template <typename R>
 FM_HD int bwt_in_row(const uint32_t* row, R r) {
   const uint32_t* words = row + Geo<R>::kWordOff;
-  return (int)((words[(int)((r & 511) >> 4)] >> (2 * (int)(r & 15))) & 3u);
-}
-
-template <typename R>
-FM_HD int bwt_at(const uint32_t* blocks, R r) {
-  return bwt_in_row<R>(blocks + (int64_t)(r >> 9) * Geo<R>::kWidth, r);
+  return (int)((ldg(words + (int)((r & 511) >> 4)) >> (2 * (int)(r & 15))) &
+               3u);
 }
 
 template <typename R>
@@ -116,12 +145,12 @@ FM_HD void ftab_entry(const uint32_t* rows, int64_t fi, R* top, R* bot) {
   const uint32_t* row = rows + (fi >> Geo<R>::kPerShift) * Geo<R>::kWidth;
   if constexpr (sizeof(R) == 8) {
     const int q = (int)(fi & 7) * 4;
-    *top = (R)(((uint64_t)row[q + 1] << 32) | (uint64_t)row[q]);
-    *bot = (R)(((uint64_t)row[q + 3] << 32) | (uint64_t)row[q + 2]);
+    *top = (R)(((uint64_t)ldg(row + q + 1) << 32) | (uint64_t)ldg(row + q));
+    *bot = (R)(((uint64_t)ldg(row + q + 3) << 32) | (uint64_t)ldg(row + q + 2));
   } else {
     const int p = (int)(fi & 15) * 2;
-    *top = (R)row[p];
-    *bot = (R)row[p + 1];
+    *top = (R)ldg(row + p);
+    *bot = (R)ldg(row + p + 1);
   }
 }
 
@@ -167,14 +196,145 @@ FM_HD void ftab12_entry(const uint32_t* blocks, const R* fchr, R zoff,
   ftab_store<R>(out, idx, top, bot);
 }
 
+// ---- the table readers ----
+//
+// A reader gives the lane loops their table reads: zoff; fc(c), fchr[c];
+// row(r), the block row holding row r (null where no table holds it);
+// ftab10(fi), the depth-10 ftab entry; deep() and ftab12_at(fi), the
+// depth-12 prime; sample(si), SA sample si; kMasked, whether row() can
+// be null; kUnroll, the walk's step-bound granularity.
+
+// LF(r, c) and BWT[r] from the block row holding r (a rank of 0 and code
+// 0 where none does: an owner-masked read that no shard answers)
+template <typename R, typename T>
+FM_HD R lf_in(const T& t, const uint32_t* row, R r, int c) {
+  if (T::kMasked && row == nullptr) return t.fc(c);
+  return t.fc(c) + rank_in_row<R>(row, t.zoff, r, c);
+}
+
+template <typename R, typename T>
+FM_HD int bwt_in(const uint32_t* row, R r) {
+  if (T::kMasked && row == nullptr) return 0;
+  return bwt_in_row<R>(row, r);
+}
+
+// The whole index on one device: packed block and ftab rows, the
+// (ceil(n/8), 8)-padded sample table, whose index is clipped to it.
 template <typename R>
-struct SearchArgs {
+struct FlatTables {
+  static constexpr bool kMasked = false;
+  static constexpr int kUnroll = 8;  // the JAX walk's 8-step unroll
   const uint32_t* blocks;
   const R* fchr;
   R zoff;
   const uint32_t* ftab;    // packed depth-10 rows
-  const uint32_t* ftab12;  // packed depth-12 rows, or null
-  const uint8_t* reads;    // [L, row_bytes]: reversed codes, 2 per byte
+  const uint32_t* ftab12;  // packed depth-12 rows, or null (no prime)
+  const int32_t* offs;     // the samples, or null (search)
+  int64_t noffs;           // their count, padding included
+
+  FM_HDM R fc(int c) const { return ldg(fchr + c); }
+  FM_HDM const uint32_t* row(R r) const {
+    return blocks + (int64_t)(r >> 9) * Geo<R>::kWidth;
+  }
+  FM_HDM void ftab10(int64_t fi, R* top, R* bot) const {
+    ftab_entry<R>(ftab, fi, top, bot);
+  }
+  FM_HDM bool deep() const { return ftab12 != nullptr; }
+  FM_HDM void ftab12_at(int64_t fi, R* top, R* bot) const {
+    ftab_entry<R>(ftab12, fi, top, bot);
+  }
+  FM_HDM int32_t sample(R si) const {
+    if (si < 0) si = 0;
+    if (si > (R)(noffs - 1)) si = (R)(noffs - 1);
+    return ldg(offs + si);
+  }
+};
+
+// The fm shards of one dp row (parallel/sharded.py ShardedFMArrays):
+// shard f holds the block rows [blk_base[f], + nblk_per), the ftab
+// entries [ftab_base[f], + nftab_per) as (top, bot) pairs and the SA
+// samples [offs_base[f], + noffs_per), split by range, so a key's owner
+// is key / per. A key no shard owns reads 0, as the JAX package's
+// owner-masked gathers summed over the fm axis give. A shard on another
+// card is read through its peer mapping. No depth-12 prime: the JAX
+// sharded kernels have none.
+constexpr int kMaxShards = 8;
+
+template <typename R>
+struct ShardSet {
+  static constexpr bool kMasked = true;
+  static constexpr int kUnroll = 4;  // the JAX sharded walk's unroll
+  const uint32_t* blocks[kMaxShards];
+  const R* ftab_tb[kMaxShards];
+  const int32_t* offs[kMaxShards];
+  int64_t blk_base[kMaxShards];
+  int64_t ftab_base[kMaxShards];
+  int64_t offs_base[kMaxShards];
+  int64_t nblk_per, nftab_per, noffs_per;
+  int32_t n_fm;
+  const R* fchr;  // replicated, on the row's lead device
+  R zoff;
+
+  // the shard owning key (one of per keys each), or -1
+  FM_HDM int owner(R key, int64_t per) const {
+    if (key < 0) return -1;
+    const R f = key / (R)per;
+    return f < (R)n_fm ? (int)f : -1;
+  }
+  FM_HDM R fc(int c) const { return ldg(fchr + c); }
+  FM_HDM const uint32_t* row(R r) const {
+    const R key = r >> 9;
+    const int f = owner(key, nblk_per);
+    if (f < 0) return nullptr;
+    return blocks[f] + (int64_t)(key - (R)blk_base[f]) * Geo<R>::kWidth;
+  }
+  FM_HDM void ftab10(int64_t fi, R* top, R* bot) const {
+    const int f = owner((R)fi, nftab_per);
+    *top = *bot = 0;
+    if (f < 0) return;
+    const R* p = ftab_tb[f] + 2 * (fi - ftab_base[f]);
+    *top = ldg(p);
+    *bot = ldg(p + 1);
+  }
+  FM_HDM bool deep() const { return false; }
+  FM_HDM void ftab12_at(int64_t, R* top, R* bot) const { *top = *bot = 0; }
+  FM_HDM int32_t sample(R si) const {
+    const int f = owner(si, noffs_per);
+    return f < 0 ? 0 : ldg(offs[f] + (si - (R)offs_base[f]));
+  }
+};
+
+// A dp row's ShardSet from its descriptor words (parallel/sharded.py
+// shard_descriptor): n_fm, nblk_per, nftab_per, noffs_per, zoff, fchr,
+// then per shard blocks, ftab_tb, offs, blk_base, ftab_base, offs_base.
+// False when n_fm is outside 1..kMaxShards.
+template <typename R>
+inline bool shard_set(const int64_t* d, ShardSet<R>* s) {
+  if (d[0] < 1 || d[0] > kMaxShards) return false;
+  *s = ShardSet<R>{};
+  s->n_fm = (int32_t)d[0];
+  s->nblk_per = d[1];
+  s->nftab_per = d[2];
+  s->noffs_per = d[3];
+  s->zoff = (R)d[4];
+  s->fchr = (const R*)(uintptr_t)d[5];
+  for (int f = 0; f < s->n_fm; ++f) {
+    const int64_t* e = d + 6 + 6 * f;
+    s->blocks[f] = (const uint32_t*)(uintptr_t)e[0];
+    s->ftab_tb[f] = (const R*)(uintptr_t)e[1];
+    s->offs[f] = (const int32_t*)(uintptr_t)e[2];
+    s->blk_base[f] = e[3];
+    s->ftab_base[f] = e[4];
+    s->offs_base[f] = e[5];
+  }
+  return true;
+}
+
+// ---- the greedy search (K1, K6) ----
+
+template <typename R>
+struct SearchArgs {
+  const uint8_t* reads;  // [L, row_bytes]: reversed codes, 2 per byte
   int64_t row_bytes;
   const int32_t* lengths;
   const int32_t* start;
@@ -188,7 +348,6 @@ struct SearchArgs {
   int32_t min_hitlen;
   int32_t increment;
   int32_t first_hit_only;
-  int32_t deep;
 };
 
 // base code at position pos of a lane's reversed read (0-3, 4 = N)
@@ -203,8 +362,11 @@ FM_HD int read_code(const uint8_t* rd, int pos) {
 // emission order, an empty hit is top == bot == -1, unused slots hold
 // (-1, -1, 0, 0), and a lane that emits more than mh hits keeps
 // overwriting its last slot (the caller re-runs it with a larger mh).
-template <typename R>
-FM_HD void search_lane(const SearchArgs<R>& a, int64_t lane) {
+// With a depth-12 table (t.deep()) a start first tries the 12-char prime.
+// Returns the lane's count of table reads (ftab entries and extension
+// steps): the lockstep loop's step count for this lane.
+template <typename R, typename T>
+FM_HD int search_lane(const T& t, const SearchArgs<R>& a, int64_t lane) {
   const uint8_t* rd = a.reads + lane * a.row_bytes;
   const int n = a.lengths[lane];
   R* ht = a.h_top + lane * a.mh;
@@ -218,7 +380,7 @@ FM_HD void search_lane(const SearchArgs<R>& a, int64_t lane) {
     hl[s] = 0;
   }
   int cur = a.start[lane];
-  int nh = 0, sum = 0;
+  int nh = 0, sum = 0, reads = 0;
   bool no12 = false;  // the deep prime of this start came back empty
   while (cur < n) {
     const int left = n - cur;
@@ -226,7 +388,7 @@ FM_HD void search_lane(const SearchArgs<R>& a, int64_t lane) {
     R top = 0, bot = 0;
     int dep = cur;
     // ---- start: deep 12-char prime, else the 10-char ftab window ----
-    if (a.deep && !no12 && left >= 12) {
+    if (t.deep() && !no12 && left >= 12) {
       int64_t fi12 = 0;
       bool has_n = false;
       for (int j = 0; j < 12; ++j) {
@@ -235,7 +397,8 @@ FM_HD void search_lane(const SearchArgs<R>& a, int64_t lane) {
         fi12 |= (int64_t)(c > 3 ? 3 : c) << (2 * j);
       }
       if (!has_n) {
-        ftab_entry<R>(a.ftab12, fi12, &top, &bot);
+        t.ftab12_at(fi12, &top, &bot);
+        ++reads;
         if (bot <= top) {
           // an empty 12-mer range retries this start on the plain path
           no12 = true;
@@ -263,7 +426,8 @@ FM_HD void search_lane(const SearchArgs<R>& a, int64_t lane) {
           e_len = fn + 1;
           e_cur = cur + fn + 1;
         } else {
-          ftab_entry<R>(a.ftab, fi, &top, &bot);
+          t.ftab10(fi, &top, &bot);
+          ++reads;
           if (bot > top) {
             go = true;
             dep = cur + kFtabChars;
@@ -283,12 +447,16 @@ FM_HD void search_lane(const SearchArgs<R>& a, int64_t lane) {
         if (c > 3) break;
         R t2, b2;
         if (bot - top == 1) {
-          if (top == a.zoff || bwt_at<R>(a.blocks, top) != c) break;
-          t2 = lf<R>(a.blocks, a.fchr, a.zoff, top, c);
+          if (top == t.zoff) break;
+          const uint32_t* row = t.row(top);
+          ++reads;
+          if (bwt_in<R, T>(row, top) != c) break;
+          t2 = lf_in<R>(t, row, top, c);
           b2 = t2 + 1;
         } else {
-          t2 = lf<R>(a.blocks, a.fchr, a.zoff, top, c);
-          b2 = lf<R>(a.blocks, a.fchr, a.zoff, bot, c);
+          ++reads;
+          t2 = lf_in<R>(t, t.row(top), top, c);
+          b2 = lf_in<R>(t, t.row(bot), bot, c);
           if (b2 <= t2) break;
         }
         top = t2;
@@ -318,30 +486,27 @@ FM_HD void search_lane(const SearchArgs<R>& a, int64_t lane) {
   }
   a.nhits[lane] = nh;
   a.sums[lane] = sum;
+  return reads;
 }
 
-// ---- SA resolution (K3): SA row -> sequence index ----
+// ---- SA resolution (K3, K6): SA row -> sequence index ----
 
 template <typename R>
 struct ResolveArgs {
-  const uint32_t* blocks;
-  const R* fchr;
-  R zoff;
-  const int32_t* offs;   // the padded (ceil(n/8), 8) sample table, flat
-  int64_t noffs;         // its length, padding included
   const R* brows;        // [nb] sorted genome-boundary rows
   const int32_t* brefs;  // [nb] their refs
   int64_t nb;
   int32_t offrate;
   int32_t narrow;     // npat <= 0xFFFF: boundary refs masked to 16 bits
-  int32_t max_steps;  // LF step bound, tested once per 8 steps
+  int32_t max_steps;  // LF step bound, tested once per T::kUnroll steps
 };
 
 // The exits of one row (ops/fm_jax.py _try_offset of the JAX package;
 // tryOffset, bt2_idx.h:1980-2014): the '$' row gives 0 and wins; else a
-// sampled row gives its sample (index clipped to the padded table);
-// else a boundary row gives its ref, checked only when the last
-// boundary row is nonzero and the row does not pass it; else -1.
+// sampled row gives its sample (the reader's: clipped to the padded
+// table, or 0 where no shard owns it); else a boundary row gives its
+// ref, checked only when the last boundary row is nonzero and the row
+// does not pass it; else -1.
 // The exits given the row's sample value (read by the caller, only for a
 // sampled row) and the genome-boundary table.
 template <typename R>
@@ -370,35 +535,40 @@ FM_HD int32_t row_exit(R row, R zoff, bool sampled, int32_t sample,
   return t;
 }
 
-template <typename R>
-FM_HD int32_t try_offset(const ResolveArgs<R>& a, R row) {
-  const R mask = ((R)1 << a.offrate) - 1;
-  const bool sampled = (row & mask) == 0;
-  int32_t sample = 0;
-  if (sampled) {
-    R si = row >> a.offrate;
-    if (si < 0) si = 0;
-    if (si > (R)(a.noffs - 1)) si = (R)(a.noffs - 1);
-    sample = a.offs[si];
-  }
-  return row_exit<R>(row, a.zoff, sampled, sample, a.brows, a.brefs, a.nb,
+template <typename R, typename T>
+FM_HD int32_t try_offset(const T& t, const ResolveArgs<R>& a, R row) {
+  const bool sampled = (row & (((R)1 << a.offrate) - 1)) == 0;
+  const int32_t sample = sampled ? t.sample(row >> a.offrate) : 0;
+  return row_exit<R>(row, t.zoff, sampled, sample, a.brows, a.brefs, a.nb,
                      a.narrow);
 }
 
-// The LF walk of one row until an exit. The JAX walk runs 8 steps per
-// while-loop iteration, counts steps and tests max_steps once per
-// iteration, so it gives up (-1) after max_steps rounded up to a multiple
-// of 8; a row's result does not depend on the other rows of its batch, so
-// the per-row walk gives the lockstep walk's output.
-template <typename R>
-FM_HD int32_t resolve_row(const ResolveArgs<R>& a, R row) {
-  int32_t t = try_offset<R>(a, row);
-  const int64_t budget = ((int64_t)a.max_steps + 7) / 8 * 8;
-  for (int64_t k = 0; t < 0 && k < budget; ++k) {
-    row = lf<R>(a.blocks, a.fchr, a.zoff, row, bwt_at<R>(a.blocks, row));
-    t = try_offset<R>(a, row);
+// The walk's LF step bound: the JAX walks count steps and test max_steps
+// once per unrolled while-loop iteration (8 steps on one device, 4 over
+// shards), so they give up after max_steps rounded up to a multiple of
+// the unroll.
+FM_HD int64_t walk_budget(int64_t max_steps, int unroll) {
+  return (max_steps + unroll - 1) / unroll * unroll;
+}
+
+// The LF walk of one row until an exit, or -1 after walk_budget steps.
+// A row's result does not depend on the other rows of its batch, so the
+// per-row walk gives the lockstep walk's output. *rounds, where given,
+// receives the row's rounds of table reads (its exits, then one per LF
+// step): the lockstep walk's step count for this row.
+template <typename R, typename T>
+FM_HD int32_t resolve_row(const T& t, const ResolveArgs<R>& a, R row,
+                          int64_t* rounds = nullptr) {
+  int32_t v = try_offset<R>(t, a, row);
+  const int64_t budget = walk_budget(a.max_steps, T::kUnroll);
+  int64_t k = 0;
+  for (; v < 0 && k < budget; ++k) {
+    const uint32_t* rw = t.row(row);
+    row = lf_in<R>(t, rw, row, bwt_in<R, T>(rw, row));
+    v = try_offset<R>(t, a, row);
   }
-  return t;
+  if (rounds != nullptr) *rounds = k + 1;
+  return v;
 }
 
 // ---- presolve pick (K5): the SA rows a mate's classification asks for ----
@@ -485,325 +655,6 @@ FM_HD void pick_mate(const PickArgs<R>& a, int64_t m) {
     }
   }
   a.nrows[m] = (int32_t)(total < (R)a.rk ? total : (R)a.rk);
-}
-
-// ---- K6: the search and the resolve walk over BWT-range shards ----
-//
-// The index is split by range over n_fm shards (parallel/sharded.py
-// ShardedFMArrays): shard s holds the block rows [blk_base, blk_base +
-// nblk_per), the ftab entries [ftab_base, ftab_base + nftab_per) as (top,
-// bot) pairs and the SA samples [offs_base, offs_base + noffs_per); fchr
-// is replicated. A lane's step is split at its table reads. The advance
-// (on the lead device of the lane's dp row) leaves the lane's next query;
-// every shard answers it from its own slice, each value masked to zero
-// where the shard does not own its row, entry or sample (the partials);
-// the next advance sums the partials over the shards, which gives the
-// owner's value (the JAX package's psum), and applies the rest of the
-// transition. No depth-12 prime: the JAX sharded kernels set no `deep`.
-
-template <typename R>
-struct Shard {
-  const uint32_t* blocks;  // [nblk_per, W] block rows
-  const R* ftab_tb;        // [nftab_per, 2] (top, bot), or null (resolve)
-  const int32_t* offs;     // [noffs_per] samples, or null (search)
-  const R* fchr;           // [5]
-  R zoff;
-  int64_t blk_base, nblk_per;
-  int64_t ftab_base, nftab_per;
-  int64_t offs_base, noffs_per;
-  int32_t offrate;
-};
-
-// the block row of shard s holding row r, or null where s does not own it
-template <typename R>
-FM_HD const uint32_t* shard_row(const Shard<R>& s, R r) {
-  const int64_t b = (int64_t)(r >> 9) - s.blk_base;
-  return (b >= 0 && b < s.nblk_per) ? s.blocks + b * Geo<R>::kWidth
-                                    : nullptr;
-}
-
-// A search lane's query: kind | c << 2. kQFtab: the ftab entry qa;
-// kQOne: rank(qa, c) and BWT[qa] (a one-row range); kQRange: rank(qa, c)
-// and rank(qb, c).
-constexpr int32_t kQNone = 0, kQFtab = 1, kQOne = 2, kQRange = 3;
-// lane phases
-constexpr int32_t kStart = 0, kExtend = 1, kDone = 2;
-
-// Shard s's partials of lane i's query: p0, p1 in the row dtype (ftab top
-// and bot, or the two ranks), p2 the BWT char. Lanes without a query
-// write nothing; the advance reads no partials for them.
-template <typename R>
-FM_HD void search_partials(const Shard<R>& s, const R* qa, const R* qb,
-                           const int32_t* qk, R* p0, R* p1, int32_t* p2,
-                           int64_t i) {
-  const int32_t q = qk[i];
-  const int kind = q & 3;
-  if (kind == kQNone) return;
-  R v0 = 0, v1 = 0;
-  int32_t v2 = 0;
-  if (kind == kQFtab) {
-    const int64_t li = (int64_t)qa[i] - s.ftab_base;
-    if (li >= 0 && li < s.nftab_per) {
-      v0 = s.ftab_tb[2 * li];
-      v1 = s.ftab_tb[2 * li + 1];
-    }
-  } else {
-    const int c = q >> 2;
-    const R t = qa[i];
-    const uint32_t* row = shard_row<R>(s, t);
-    if (row != nullptr) {
-      v0 = rank_in_row<R>(row, s.zoff, t, c);
-      if (kind == kQOne) v2 = bwt_in_row<R>(row, t);
-    }
-    if (kind == kQRange) {
-      const R b = qb[i];
-      row = shard_row<R>(s, b);
-      if (row != nullptr) v1 = rank_in_row<R>(row, s.zoff, b, c);
-    }
-  }
-  p0[i] = v0;
-  p1[i] = v1;
-  p2[i] = v2;
-}
-
-template <typename R>
-struct ShardSearchArgs {
-  const uint8_t* reads;  // [L, row_bytes]: reversed codes, 2 per byte
-  int64_t row_bytes;
-  const int32_t* lengths;
-  const int32_t* start;
-  const R* fchr;
-  R zoff;
-  // lane state
-  int32_t* cur;
-  int32_t* dep;
-  int32_t* phase;
-  R* top;
-  R* bot;
-  // the lane's query, and the partials [n_fm, L] that answer it
-  R* qa;
-  R* qb;
-  int32_t* qk;
-  const R* p0;
-  const R* p1;
-  const int32_t* p2;
-  int32_t n_fm;
-  int64_t L;
-  // outputs, as SearchArgs
-  R* h_top;
-  R* h_bot;
-  int32_t* h_off;
-  int32_t* h_len;
-  int32_t* nhits;
-  int32_t* sums;
-  int32_t mh;
-  int32_t min_hitlen;
-  int32_t increment;
-  int32_t first_hit_only;
-};
-
-// search_lane's emit and driver policy, on a lane's local state
-template <typename R>
-FM_HD void shard_emit(const ShardSearchArgs<R>& a, int64_t i, int n,
-                      int& cur, int& phase, int& nh, int& sum, R e_top,
-                      R e_bot, int e_len, int e_cur) {
-  const int slot = nh < a.mh ? nh : a.mh - 1;
-  const int64_t k = i * a.mh + slot;
-  a.h_top[k] = e_top;
-  a.h_bot[k] = e_bot;
-  a.h_off[k] = cur;
-  a.h_len[k] = e_len;
-  ++nh;
-  if (e_len >= a.min_hitlen) sum += e_len;
-  const int next = e_len > a.increment ? e_cur + 1 : e_cur;
-  if (a.first_hit_only || e_cur >= n || next + a.min_hitlen >= n) {
-    phase = kDone;
-  } else {
-    cur = next;
-    phase = kStart;
-  }
-}
-
-// One advance of lane i: on the first step, the lane's start (hit slots
-// unused, cursor at start); after that, the transition its query asked
-// for, from the partials summed over the shards. Then the table-free
-// transitions of search_lane (a start too short for the ftab or with an
-// N in its window, an extension past the read's end or into an N, a
-// one-row range at the '$' row) until the lane needs a table read, which
-// it leaves as its query, or is done. Returns whether it left a query.
-template <typename R>
-FM_HD bool search_advance(const ShardSearchArgs<R>& a, int64_t i,
-                          bool first) {
-  const int n = a.lengths[i];
-  int cur, dep, phase, nh, sum;
-  R top, bot;
-  if (first) {
-    for (int s = 0; s < a.mh; ++s) {
-      a.h_top[i * a.mh + s] = -1;
-      a.h_bot[i * a.mh + s] = -1;
-      a.h_off[i * a.mh + s] = 0;
-      a.h_len[i * a.mh + s] = 0;
-    }
-    cur = a.start[i];
-    dep = cur;
-    phase = cur < n ? kStart : kDone;
-    nh = sum = 0;
-    top = bot = 0;
-  } else {
-    phase = a.phase[i];
-    if (phase == kDone) return false;
-    cur = a.cur[i];
-    dep = a.dep[i];
-    top = a.top[i];
-    bot = a.bot[i];
-    nh = a.nhits[i];
-    sum = a.sums[i];
-    R v0 = 0, v1 = 0;
-    int32_t v2 = 0;
-    for (int f = 0; f < a.n_fm; ++f) {
-      v0 += a.p0[f * a.L + i];
-      v1 += a.p1[f * a.L + i];
-      v2 += a.p2[f * a.L + i];
-    }
-    const int32_t q = a.qk[i];
-    if ((q & 3) == kQFtab) {
-      if (v1 > v0) {
-        top = v0;
-        bot = v1;
-        dep = cur + kFtabChars;
-        phase = kExtend;
-      } else {
-        shard_emit<R>(a, i, n, cur, phase, nh, sum, (R)-1, (R)-1, kFtabChars,
-                      cur + kFtabChars);
-      }
-    } else {
-      const int c = q >> 2;
-      const R t2 = a.fchr[c] + v0;
-      const R b2 = (q & 3) == kQOne ? t2 + 1 : a.fchr[c] + v1;
-      if (((q & 3) == kQOne && v2 != c) || b2 <= t2) {
-        shard_emit<R>(a, i, n, cur, phase, nh, sum, top, bot, dep - cur,
-                      dep);
-      } else {
-        top = t2;
-        bot = b2;
-        ++dep;
-      }
-    }
-  }
-  const uint8_t* rd = a.reads + i * a.row_bytes;
-  int32_t q = kQNone;
-  while (phase != kDone && q == kQNone) {
-    if (phase == kStart) {
-      const int left = n - cur;
-      if (left < kFtabChars) {
-        shard_emit<R>(a, i, n, cur, phase, nh, sum, (R)-1, (R)-1, left, n);
-        continue;
-      }
-      int fn = kFtabChars;
-      int64_t fi = 0;
-      for (int j = 0; j < kFtabChars; ++j) {
-        const int c = read_code(rd, cur + j);
-        if (c > 3 && fn == kFtabChars) fn = j;
-        fi |= (int64_t)(c > 3 ? 3 : c) << (2 * j);
-      }
-      if (fn < kFtabChars) {
-        shard_emit<R>(a, i, n, cur, phase, nh, sum, (R)-1, (R)-1, fn + 1,
-                      cur + fn + 1);
-        continue;
-      }
-      a.qa[i] = (R)fi;
-      q = kQFtab;
-    } else {
-      const int c = dep < n ? read_code(rd, dep) : 4;
-      if (c > 3 || (bot - top == 1 && top == a.zoff)) {
-        shard_emit<R>(a, i, n, cur, phase, nh, sum, top, bot, dep - cur,
-                      dep);
-        continue;
-      }
-      a.qa[i] = top;
-      a.qb[i] = bot;
-      q = (bot - top == 1 ? kQOne : kQRange) | (c << 2);
-    }
-  }
-  a.qk[i] = q;
-  a.cur[i] = cur;
-  a.dep[i] = dep;
-  a.phase[i] = phase;
-  a.top[i] = top;
-  a.bot[i] = bot;
-  a.nhits[i] = nh;
-  a.sums[i] = sum;
-  return q != kQNone;
-}
-
-// Shard s's partials of a walking row q[i] (q < 0: the row is done): the
-// owner of its block computes the whole LF successor (it holds both the
-// BWT char and the rank), the owner of its sample index reads the sample
-// of a sampled row; no owner, as for an index past the table, gives 0.
-template <typename R>
-FM_HD void resolve_partials(const Shard<R>& s, const R* q, R* p0, int32_t* p1,
-                            int64_t i) {
-  const R r = q[i];
-  if (r < 0) return;
-  R v0 = 0;
-  int32_t v1 = 0;
-  const uint32_t* row = shard_row<R>(s, r);
-  if (row != nullptr) {
-    const int c = bwt_in_row<R>(row, r);
-    v0 = s.fchr[c] + rank_in_row<R>(row, s.zoff, r, c);
-  }
-  if ((r & (((R)1 << s.offrate) - 1)) == 0) {
-    const int64_t li = (int64_t)(r >> s.offrate) - s.offs_base;
-    if (li >= 0 && li < s.noffs_per) v1 = s.offs[li];
-  }
-  p0[i] = v0;
-  p1[i] = v1;
-}
-
-constexpr int32_t kWalking = -2;  // tidx of a row still walking
-
-template <typename R>
-struct ShardResolveArgs {
-  R zoff;
-  const R* brows;  // [nb] sorted genome-boundary rows (replicated)
-  const int32_t* brefs;
-  int64_t nb;
-  int32_t offrate;
-  int32_t narrow;  // npat <= 0xFFFF: boundary refs masked to 16 bits
-  R* q;            // [N] the walking rows; -1 once done
-  int32_t* tidx;   // [N] results; kWalking while walking
-  const R* p0;     // [n_fm, N] partials
-  const int32_t* p1;
-  int32_t n_fm;
-  int64_t N;
-};
-
-// Step `step` of row i: the exits of its row (_sharded_try_offset) with
-// the sample summed over the shards; a row with no exit after `budget`
-// LF steps gives -1, else it moves to its LF successor. Returns whether
-// the row walks on.
-template <typename R>
-FM_HD bool resolve_advance(const ShardResolveArgs<R>& a, int64_t i,
-                           int64_t step, int64_t budget) {
-  if (step > 0 && a.tidx[i] != kWalking) return false;
-  const R r = a.q[i];
-  R v0 = 0;
-  int32_t v1 = 0;
-  for (int f = 0; f < a.n_fm; ++f) {
-    v0 += a.p0[f * a.N + i];
-    v1 += a.p1[f * a.N + i];
-  }
-  const bool sampled = (r & (((R)1 << a.offrate) - 1)) == 0;
-  const int32_t t =
-      row_exit<R>(r, a.zoff, sampled, v1, a.brows, a.brefs, a.nb, a.narrow);
-  if (t >= 0 || step >= budget) {
-    a.tidx[i] = t;
-    a.q[i] = -1;
-    return false;
-  }
-  a.tidx[i] = kWalking;
-  a.q[i] = v0;
-  return true;
 }
 
 }  // namespace fm

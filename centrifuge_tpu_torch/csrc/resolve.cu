@@ -7,7 +7,9 @@
 // rows in lockstep, 8 unrolled steps per while-loop iteration, so every
 // row pays the longest walk of its batch; the two-phase variant compacts
 // the survivors to cut that tail. Here each thread stops at its own exit
-// (fm_common.cuh resolve_row), which gives the single-phase outputs,
+// (fm_common.cuh resolve_row over the one-device FlatTables reader; K6
+// walks the same loop over its shards), which gives the single-phase
+// outputs,
 // including the -1 of a row still unresolved after max_steps steps
 // rounded up to a multiple of 8.
 //
@@ -27,12 +29,12 @@
 namespace {
 
 template <typename R>
-__global__ void resolve_kernel(fm::ResolveArgs<R> a,
+__global__ void resolve_kernel(fm::FlatTables<R> t, fm::ResolveArgs<R> a,
                                const R* __restrict__ rows,
                                int32_t* __restrict__ tidx, int64_t n) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  tidx[i] = fm::resolve_row<R>(a, rows[i]);
+  tidx[i] = fm::resolve_row<R>(t, a, rows[i]);
 }
 
 template <typename R>
@@ -41,12 +43,13 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
            const void* brefs, int64_t nb, int32_t offrate, int32_t narrow,
            int32_t max_steps, const void* rows, void* tidx, int64_t n,
            void* stream) {
+  fm::FlatTables<R> t{};
+  t.blocks = (const uint32_t*)blocks;
+  t.fchr = (const R*)fchr;
+  t.zoff = (R)zoff;
+  t.offs = (const int32_t*)offs;
+  t.noffs = noffs;
   fm::ResolveArgs<R> a;
-  a.blocks = (const uint32_t*)blocks;
-  a.fchr = (const R*)fchr;
-  a.zoff = (R)zoff;
-  a.offs = (const int32_t*)offs;
-  a.noffs = noffs;
   a.brows = (const R*)brows;
   a.brefs = (const int32_t*)brefs;
   a.nb = nb;
@@ -57,7 +60,7 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
     const int threads = 128;
     const int64_t grid = (n + threads - 1) / threads;
     resolve_kernel<R><<<(unsigned)grid, threads, 0, (cudaStream_t)stream>>>(
-        a, (const R*)rows, (int32_t*)tidx, n);
+        t, a, (const R*)rows, (int32_t*)tidx, n);
   }
   return (int)cudaGetLastError();
 }

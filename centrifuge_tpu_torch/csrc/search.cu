@@ -6,8 +6,9 @@
 // The TPU version steps every lane in lockstep inside a lax.while_loop,
 // with one-row deferral, survivor compaction and masked-sum selects, all
 // of which exist for the TPU's lack of a scalar gather; here each thread
-// follows its own lane (fm_common.cuh search_lane) and the outputs are
-// the same.
+// follows its own lane (fm_common.cuh search_lane over the one-device
+// FlatTables reader; K6 runs the same loop over its shards) and the
+// outputs are the same.
 //
 // Bound on an H100: every extension step ranks one (one-row range) or
 // two (top and bot) rows, each needing its occ checkpoint and part of
@@ -27,10 +28,11 @@
 namespace {
 
 template <typename R>
-__global__ void search_kernel(fm::SearchArgs<R> a, int64_t L) {
+__global__ void search_kernel(fm::FlatTables<R> t, fm::SearchArgs<R> a,
+                              int64_t L) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
-  fm::search_lane<R>(a, lane);
+  fm::search_lane<R>(t, a, lane);
 }
 
 template <typename R>
@@ -41,12 +43,13 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
            void* sums, int64_t L, int32_t mh, int32_t min_hitlen,
            int32_t increment, int32_t first_hit_only, int32_t deep,
            void* stream) {
+  fm::FlatTables<R> t{};
+  t.blocks = (const uint32_t*)blocks;
+  t.fchr = (const R*)fchr;
+  t.zoff = (R)zoff;
+  t.ftab = (const uint32_t*)ftab;
+  t.ftab12 = deep ? (const uint32_t*)ftab12 : nullptr;
   fm::SearchArgs<R> a;
-  a.blocks = (const uint32_t*)blocks;
-  a.fchr = (const R*)fchr;
-  a.zoff = (R)zoff;
-  a.ftab = (const uint32_t*)ftab;
-  a.ftab12 = (const uint32_t*)ftab12;
   a.reads = (const uint8_t*)reads;
   a.row_bytes = row_bytes;
   a.lengths = (const int32_t*)lengths;
@@ -61,12 +64,11 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
   a.min_hitlen = min_hitlen;
   a.increment = increment;
   a.first_hit_only = first_hit_only;
-  a.deep = deep && ftab12 != nullptr;
   if (L > 0) {
     const int threads = 128;
     const int64_t grid = (L + threads - 1) / threads;
     search_kernel<R><<<(unsigned)grid, threads, 0, (cudaStream_t)stream>>>(
-        a, L);
+        t, a, L);
   }
   return (int)cudaGetLastError();
 }

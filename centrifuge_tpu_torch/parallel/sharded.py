@@ -17,19 +17,29 @@ keep their meaning here:
 A mesh is an (n_dp, n_fm) grid of torch devices, and a device may appear
 more than once: `make_mesh(1, 4, ["cuda:0"] * 4)` puts four shards on one
 card, `make_mesh(2, 2, ["cpu"] * 4)` runs the plain versions on the CPU.
-A repeated device still holds one table per shard, and every read still
-sums over the shards.
+A repeated device still holds one table per shard.
 
-K6 is four CUDA kernels (csrc/sharded.cu, lane functions in
-csrc/fm_common.cuh): per step, one partials launch per shard and one
-advance on the row's lead device; the host drives the steps and reads the
-live-lane count every CHECK_EVERY steps. A shard on the lead's device
-writes its slice of the partials buffer directly; a shard on another
-device gets the lanes' queries and returns its partials by peer copies,
-ordered by torch's cross-device copy on the devices' current streams. On
-the CPU the plain versions run: the lockstep search of
+K6 is two CUDA kernels (csrc/sharded.cu), the search and the resolve
+walk, each one launch per dp row on the row's lead device and its
+current stream, with no host step loop and no device-to-host sync. One
+thread runs one lane (or row) to its own end through the lane loops that
+K1 and K3 run (csrc/fm_common.cuh search_lane, resolve_row), over the
+row's shards: every table read goes to the shard that owns its key, in
+registers. The ranges are disjoint, so that read is the JAX package's
+owner-masked psum over the fm axis (parallel/sharded.py _shard_kernels,
+_sharded_try_offset), including its 0 where no shard owns the key. The
+shards' pointers and bases are described once per dp row when the mesh
+index is placed (shard_descriptor); a shard on another card is read
+through a peer mapping over NVLink, enabled then, and a pair of cards
+without peer access is refused there. The bound is K1's and K3's: each
+32-byte sector of the tables the lanes touch, once, over the card's
+memory rate; each lane's chain of dependent row reads makes the kernels
+latency-bound.
+
+On the CPU the plain versions run: the lockstep search of
 classify/engine.search_steps and a lockstep resolve walk, with every
-table read the sum over the shards of the owner-masked local read.
+table read the sum over the shards of the owner-masked local read. They
+are independent of the kernels' design and are the tests' yardstick.
 
 ShardedSearchEngine keeps the surface of the single-device
 BatchSearchEngine that the pipeline and the native tail call, without
@@ -58,7 +68,9 @@ from ..ops.rank import bwt_at_plain, rank_plain, word_counts
 # up after walk_budget(max_steps, 4) steps
 SHARDED_RESOLVE_UNROLL = 4
 SHARDED_RESOLVE_MAX_STEPS = 4096
-CHECK_EVERY = 16   # steps between reads of the live-lane count
+# the most shards K6's kernel parameter describes (csrc/fm_common.cuh
+# kMaxShards)
+MAX_SHARDS = 8
 
 
 def _pad_to(arr: np.ndarray, mult: int, fill=0) -> np.ndarray:
@@ -164,7 +176,7 @@ class Mesh:
     may appear more than once."""
 
     def __init__(self, devices: Sequence[Sequence]):
-        self.devices = [[torch.device(d) for d in row] for row in devices]
+        self.devices = [[resolve_device(d) for d in row] for row in devices]
         n_fm = len(self.devices[0]) if self.devices else 0
         if not n_fm or any(len(r) != n_fm for r in self.devices):
             raise ValueError("a mesh is a non-empty rectangular grid")
@@ -239,25 +251,33 @@ class FMShard:
 
 @dataclass
 class MeshRow:
-    """A dp row: its lead device, its n_fm shards, and the replicated
-    arrays on the lead."""
+    """A dp row: its lead device, its n_fm shards, the replicated arrays
+    on the lead, and on a CUDA mesh K6's shard descriptor."""
 
     lead: torch.device
     shards: List[FMShard]
     fchr: torch.Tensor
     brows: torch.Tensor
     brefs: torch.Tensor
+    desc: np.ndarray = None
 
 
 class MeshIndex:
     """A ShardedFMArrays placed on a mesh: shard f's tables on each
     device of fm column f (one copy per device, however often it
-    appears), the replicated arrays on each row's lead."""
+    appears), the replicated arrays on each row's lead. On a CUDA mesh
+    each row's lead gets peer access to the row's other cards (raises
+    where a pair has none) and the row its shard descriptor."""
 
     def __init__(self, sh: ShardedFMArrays, mesh: Mesh):
         if mesh.n_fm != sh.n_fm:
             raise ValueError(f"the arrays are split {sh.n_fm} ways, the "
                              f"mesh's fm axis is {mesh.n_fm}")
+        if mesh.on_cuda:
+            if sh.n_fm > MAX_SHARDS:
+                raise ValueError(f"K6 takes at most {MAX_SHARDS} fm shards, "
+                                 f"not {sh.n_fm}")
+            _enable_peers(mesh)
         self.mesh = mesh
         self.on_cuda = mesh.on_cuda
         for k in ("zoff", "bwt_len", "offrate", "npat", "n_fm", "wide",
@@ -293,6 +313,8 @@ class MeshIndex:
                     brefs=put("brefs", row[0], sh.boundary_refs))
             for row in mesh.devices]
         if self.on_cuda:
+            for row in self.rows:
+                row.desc = shard_descriptor(self, row)
             for dev in mesh.distinct():
                 torch.cuda.synchronize(dev)
 
@@ -303,6 +325,36 @@ class MeshIndex:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self._cache.values())
+
+
+def shard_descriptor(index: MeshIndex, row: MeshRow) -> np.ndarray:
+    """The int64 words that describe a dp row's shards to K6
+    (csrc/fm_common.cuh shard_set): n_fm, the per-shard block, ftab and
+    sample counts, zoff, the address of fchr on the lead, then per shard
+    the addresses of its blocks, ftab pairs and samples and its first
+    block row, ftab entry and sample. Shard f owns keys [f * per,
+    (f + 1) * per) of each table."""
+    words = [len(row.shards), index.nblk_per, index.nftab_per,
+             index.noffs_per, int(index.zoff), row.fchr.data_ptr()]
+    for s in row.shards:
+        words += [s.blocks.data_ptr(), s.ftab_tb.data_ptr(),
+                  s.offs.data_ptr(), s.blk_base, s.ftab_base, s.offs_base]
+    return np.array(words, dtype=np.int64)
+
+
+def _enable_peers(mesh: Mesh) -> None:
+    """Peer access from each row's lead to every other card of its row,
+    checked for all pairs first: K6 reads those cards' shards in place."""
+    pairs = sorted({(row[0].index, d.index) for row in mesh.devices
+                    for d in row if d != row[0]})
+    for lead, other in pairs:
+        if not torch.cuda.can_device_access_peer(lead, other):
+            raise RuntimeError(
+                f"cuda:{lead} has no peer access to cuda:{other}: K6 on "
+                f"cuda:{lead} reads the shards on cuda:{other} in place")
+    for lead, other in pairs:
+        _cuda.check(_cuda.lib("sharded").fm_shard_enable_peer(lead, other),
+                    f"peer access from cuda:{lead} to cuda:{other}")
 
 
 # ---- the plain versions ----
@@ -463,177 +515,6 @@ def sharded_resolve_plain(index: MeshIndex, rows: torch.Tensor,
 
 # ---- K6 on CUDA devices ----
 
-def _ptr(t: torch.Tensor, k: int = 0) -> int:
-    """The address of row k of t (a slice of a [n_fm, L] buffer)."""
-    return t.data_ptr() + k * t.stride(0) * t.element_size()
-
-
-class _Run:
-    """One dp row's K6 search or walk in flight on its lead device: the
-    lane state, the queries and the partials buffer [n_fm, n] there, and
-    per shard on another device a copy of the queries and its partials.
-    Launches go to each device's current stream."""
-
-    def __init__(self, index: MeshIndex, row: MeshRow, n: int, dtypes_q,
-                 dtypes_p):
-        self.index, self.row, self.n = index, row, n
-        lead, n_fm = row.lead, len(row.shards)
-        self.lib = _cuda.lib("sharded")
-        self.kind = "wide" if index.wide else "narrow"
-        self.live = torch.zeros(1, dtype=torch.int32, device=lead)
-        self.steps = 0
-        self.finished = False
-        self.q = [torch.empty(n, dtype=dt, device=lead) for dt in dtypes_q]
-        self.p = [torch.empty((n_fm, n), dtype=dt, device=lead)
-                  for dt in dtypes_p]
-        self.remote = {
-            f: ([torch.empty(n, dtype=dt, device=s.device)
-                 for dt in dtypes_q],
-                [torch.empty(n, dtype=dt, device=s.device)
-                 for dt in dtypes_p])
-            for f, s in enumerate(row.shards) if s.device != lead}
-
-    def _partials(self, launch) -> None:
-        """Each shard's partials into its slice of the lead's buffer:
-        directly for a shard on the lead's device; through peer copies of
-        the queries and the partials for a shard elsewhere."""
-        for f, s in enumerate(self.row.shards):
-            if f not in self.remote:
-                launch(s, [q.data_ptr() for q in self.q],
-                       [_ptr(p, f) for p in self.p],
-                       _cuda.stream_ptr(s.device))
-                continue
-            q_l, p_l = self.remote[f]
-            with torch.cuda.device(s.device):
-                for dst, src in zip(q_l, self.q):
-                    dst.copy_(src, non_blocking=True)
-                launch(s, [q.data_ptr() for q in q_l],
-                       [p.data_ptr() for p in p_l],
-                       _cuda.stream_ptr(s.device))
-                for dst, src in zip(self.p, p_l):
-                    dst[f].copy_(src, non_blocking=True)
-
-    def live_count(self) -> int:
-        return int(self.live.item())
-
-
-class _SearchRun(_Run):
-    def __init__(self, index, row, reads, lengths, start, mh, min_hitlen,
-                 increment, first_hit_only):
-        L = reads.shape[0]
-        dev, idt, i32 = row.lead, index.row_dtype, torch.int32
-        # queries (qa, qb, qk) and partials (p0, p1, p2)
-        super().__init__(index, row, L, (idt, idt, i32), (idt, idt, i32))
-        self.out = [torch.empty((L, mh), dtype=idt, device=dev),
-                    torch.empty((L, mh), dtype=idt, device=dev),
-                    torch.empty((L, mh), dtype=i32, device=dev),
-                    torch.empty((L, mh), dtype=i32, device=dev),
-                    torch.empty(L, dtype=i32, device=dev),
-                    torch.empty(L, dtype=i32, device=dev)]
-        # cur, dep, phase; top, bot
-        self.state = [torch.empty(L, dtype=i32, device=dev)
-                      for _ in range(3)] + [
-            torch.empty(L, dtype=idt, device=dev) for _ in range(2)]
-        self.inputs = (reads, lengths, start)
-        self.args = (mh, min_hitlen, increment, int(first_hit_only))
-        # a lane makes at most ~3 queries per base (a start and an
-        # extension step, each at most once per position)
-        self.cap = 4 * 2 * reads.shape[1] + 2 * CHECK_EVERY
-        with torch.cuda.device(dev):
-            self._advance(first=True)
-
-    def _advance(self, first: bool) -> None:
-        reads, lengths, start = self.inputs
-        row = self.row
-        fn = getattr(self.lib, f"fm_shard_search_advance_{self.kind}")
-        rc = fn(reads.data_ptr(), reads.shape[1], lengths.data_ptr(),
-                start.data_ptr(), row.fchr.data_ptr(), int(self.index.zoff),
-                *[t.data_ptr() for t in self.state],
-                *[q.data_ptr() for q in self.q],
-                *[p.data_ptr() for p in self.p], len(row.shards), self.n,
-                *[o.data_ptr() for o in self.out], *self.args, int(first),
-                self.live.data_ptr(), _cuda.stream_ptr(row.lead))
-        _cuda.check(rc, "sharded search advance")
-        _cuda.LAUNCHES["sharded_search"] += 1
-
-    def step(self, count: bool) -> None:
-        if self.steps >= self.cap:
-            raise RuntimeError("the sharded search did not finish")
-        self.steps += 1
-        if count:
-            self.live.zero_()
-        ix = self.index
-        fn = getattr(self.lib, f"fm_shard_search_partials_{self.kind}")
-
-        def launch(s, q, p, stream):
-            rc = fn(s.blocks.data_ptr(), s.ftab_tb.data_ptr(),
-                    s.fchr.data_ptr(), int(ix.zoff), s.blk_base,
-                    ix.nblk_per, s.ftab_base, ix.nftab_per, *q, *p, self.n,
-                    stream)
-            _cuda.check(rc, "sharded search partials")
-            _cuda.LAUNCHES["sharded_search"] += 1
-
-        self._partials(launch)
-        self._advance(first=False)
-
-
-class _ResolveRun(_Run):
-    def __init__(self, index, row, rows, max_steps):
-        N = rows.shape[0]
-        # the walking rows; partials (LF successor, sample)
-        super().__init__(index, row, N, (index.row_dtype,),
-                         (index.row_dtype, torch.int32))
-        self.q[0].copy_(rows)
-        self.tidx = torch.empty(N, dtype=torch.int32, device=row.lead)
-        self.budget = walk_budget(max_steps, SHARDED_RESOLVE_UNROLL)
-
-    def step(self, count: bool) -> None:
-        if count:
-            self.live.zero_()
-        ix, row = self.index, self.row
-        pfn = getattr(self.lib, f"fm_shard_resolve_partials_{self.kind}")
-
-        def launch(s, q, p, stream):
-            rc = pfn(s.blocks.data_ptr(), s.offs.data_ptr(),
-                     s.fchr.data_ptr(), int(ix.zoff), s.blk_base,
-                     ix.nblk_per, s.offs_base, ix.noffs_per, ix.offrate,
-                     *q, *p, self.n, stream)
-            _cuda.check(rc, "sharded resolve partials")
-            _cuda.LAUNCHES["sharded_resolve"] += 1
-
-        self._partials(launch)
-        afn = getattr(self.lib, f"fm_shard_resolve_advance_{self.kind}")
-        rc = afn(int(ix.zoff), row.brows.data_ptr(), row.brefs.data_ptr(),
-                 row.brows.numel(), ix.offrate, int(ix.npat <= 0xFFFF),
-                 self.q[0].data_ptr(), self.tidx.data_ptr(),
-                 *[p.data_ptr() for p in self.p], len(row.shards), self.n,
-                 self.steps, self.budget, self.live.data_ptr(),
-                 _cuda.stream_ptr(row.lead))
-        _cuda.check(rc, "sharded resolve advance")
-        _cuda.LAUNCHES["sharded_resolve"] += 1
-        self.steps += 1
-        # after step `budget` every row has its exit or its -1
-        self.finished = self.steps > self.budget
-
-
-def _drive(runs: List[_Run]) -> int:
-    """Step every dp row's run until no lane is left: the live count is
-    read back every CHECK_EVERY steps (a dead lane's step does nothing).
-    Returns the number of steps. A run launches on its lead device (the
-    current device while it steps) and its shards' devices."""
-    live = [r for r in runs if not r.finished]
-    steps = 0
-    while live:
-        steps += 1
-        count = steps % CHECK_EVERY == 0
-        for r in live:
-            with torch.cuda.device(r.row.lead):
-                r.step(count)
-        live = [r for r in live if not r.finished
-                and (not count or r.live_count() > 0)]
-    return steps
-
-
 def _check_on_index(index: MeshIndex, *tensors) -> bool:
     """True for CUDA tensors on a CUDA mesh (launch K6), False for CPU
     tensors on a CPU mesh (the plain version); raises on a mix."""
@@ -653,10 +534,10 @@ def sharded_search(index: MeshIndex, reads: torch.Tensor,
                    lengths: torch.Tensor, start: torch.Tensor, mh: int,
                    min_hitlen: int, increment: int, first_hit_only: bool):
     """K6 search over all lanes (reads uint8 [L, row_bytes], lengths and
-    start int32 [L], L a multiple of n_dp): the CUDA kernels for CUDA
-    tensors on a CUDA mesh, the plain version for CPU tensors on a CPU
-    mesh. Returns [h_top, h_bot, h_off, h_len, nhits, sums] on the
-    inputs' device."""
+    start int32 [L], L a multiple of n_dp): for CUDA tensors on a CUDA
+    mesh, one kernel launch per dp row on its lead's current stream; for
+    CPU tensors on a CPU mesh, the plain version. Returns [h_top, h_bot,
+    h_off, h_len, nhits, sums] on the inputs' device."""
     if not _check_on_index(index, reads, lengths, start):
         return sharded_search_plain(index, reads, lengths, start, mh,
                                     min_hitlen, increment, first_hit_only)
@@ -666,13 +547,32 @@ def sharded_search(index: MeshIndex, reads: torch.Tensor,
             or lengths.shape != (L,) or start.shape != (L,):
         raise ValueError("reads must be uint8 [L, row_bytes], lengths and "
                          "start int32 [L]")
-    runs = [_SearchRun(index, row, reads[sl].to(row.lead),
-                       lengths[sl].to(row.lead), start[sl].to(row.lead), mh,
-                       min_hitlen, increment, first_hit_only)
-            for row, sl in zip(index.rows, _lane_slices(L, len(index.rows)))]
-    _drive(runs)
-    return [torch.cat([r.out[k].to(reads.device) for r in runs])
-            for k in range(6)]
+    dev, idt, i32 = reads.device, index.row_dtype, torch.int32
+    out = [torch.empty((L, mh), dtype=idt, device=dev),
+           torch.empty((L, mh), dtype=idt, device=dev),
+           torch.empty((L, mh), dtype=i32, device=dev),
+           torch.empty((L, mh), dtype=i32, device=dev),
+           torch.empty(L, dtype=i32, device=dev),
+           torch.empty(L, dtype=i32, device=dev)]
+    fn = getattr(_cuda.lib("sharded"),
+                 f"fm_shard_search_{'wide' if index.wide else 'narrow'}")
+    for row, sl in zip(index.rows, _lane_slices(L, len(index.rows))):
+        ins = [t[sl].to(row.lead) for t in (reads, lengths, start)]
+        outs = [o[sl] if row.lead == dev else torch.empty_like(o[sl],
+                                                             device=row.lead)
+                for o in out]
+        with torch.cuda.device(row.lead):
+            rc = fn(row.desc.ctypes.data, ins[0].data_ptr(), reads.shape[1],
+                    ins[1].data_ptr(), ins[2].data_ptr(),
+                    *[o.data_ptr() for o in outs], sl.stop - sl.start, mh,
+                    min_hitlen, increment, int(first_hit_only),
+                    _cuda.stream_ptr(row.lead))
+        _cuda.check(rc, "sharded search")
+        _cuda.LAUNCHES["sharded_search"] += 1
+        if row.lead != dev:
+            for o, r in zip(out, outs):
+                o[sl].copy_(r)
+    return out
 
 
 def sharded_resolve(index: MeshIndex, rows: torch.Tensor,
@@ -680,17 +580,31 @@ def sharded_resolve(index: MeshIndex, rows: torch.Tensor,
                     ) -> torch.Tensor:
     """K6 resolve walk over rows (row dtype [N], N a multiple of n_dp,
     each >= 0) -> int32 [N], -1 where unresolved after
-    walk_budget(max_steps, 4) LF steps: the CUDA kernels for CUDA tensors
-    on a CUDA mesh, the plain version for CPU tensors on a CPU mesh."""
+    walk_budget(max_steps, 4) LF steps: one kernel launch per dp row for
+    CUDA tensors on a CUDA mesh, the plain version for CPU tensors on a
+    CPU mesh."""
     if not _check_on_index(index, rows):
         return sharded_resolve_plain(index, rows, max_steps)
     if rows.dtype != index.row_dtype or rows.dim() != 1:
         raise ValueError(f"rows must be a 1-d {index.row_dtype} tensor")
-    runs = [_ResolveRun(index, row, rows[sl].to(row.lead), max_steps)
-            for row, sl in zip(index.rows,
-                               _lane_slices(rows.shape[0], len(index.rows)))]
-    _drive(runs)
-    return torch.cat([r.tidx.to(rows.device) for r in runs])
+    tidx = torch.empty(rows.shape, dtype=torch.int32, device=rows.device)
+    fn = getattr(_cuda.lib("sharded"),
+                 f"fm_shard_resolve_{'wide' if index.wide else 'narrow'}")
+    for row, sl in zip(index.rows, _lane_slices(rows.shape[0],
+                                                len(index.rows))):
+        part = rows[sl].to(row.lead)
+        got = tidx[sl] if row.lead == rows.device else torch.empty(
+            part.shape, dtype=torch.int32, device=row.lead)
+        with torch.cuda.device(row.lead):
+            rc = fn(row.desc.ctypes.data, row.brows.data_ptr(),
+                    row.brefs.data_ptr(), row.brows.numel(), index.offrate,
+                    int(index.npat <= 0xFFFF), max_steps, part.data_ptr(),
+                    got.data_ptr(), part.numel(), _cuda.stream_ptr(row.lead))
+        _cuda.check(rc, "sharded resolve")
+        _cuda.LAUNCHES["sharded_resolve"] += 1
+        if row.lead != rows.device:
+            tidx[sl].copy_(got)
+    return tidx
 
 
 @contextlib.contextmanager
@@ -770,29 +684,17 @@ class ShardedSearchEngine(BatchSearchEngine):
                 *args)
             return handle
         with self.dev_lock, _on_streams(self._streams):
-            slices = _lane_slices(handle.nlanes, self.n_dp)
-            runs = []
-            for row, sl in zip(index.rows, slices):
-                dev = row.lead
-                runs.append(_SearchRun(
-                    index, row,
-                    *[torch.from_numpy(a[sl]).to(dev, non_blocking=True)
-                      for a in (handle.rseqp, handle.lengths, start)],
-                    *args))
-            _drive(runs)
-            host = [torch.empty((handle.nlanes,) + o.shape[1:],
-                                dtype=o.dtype, pin_memory=True)
-                    for o in runs[0].out]
-            lead0 = self._streams[index.device]
-            for run, sl in zip(runs, slices):
-                for h, o in zip(host, run.out):
-                    h[sl].copy_(o, non_blocking=True)
-                if run.row.lead != index.device:
-                    ev = torch.cuda.Event()
-                    ev.record(self._streams[run.row.lead])
-                    lead0.wait_event(ev)
+            dev = index.device
+            out = sharded_search(
+                index, *[torch.from_numpy(a).to(dev, non_blocking=True)
+                         for a in (handle.rseqp, handle.lengths, start)],
+                *args)
+            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    for o in out]
+            for h, o in zip(host, out):
+                h.copy_(o, non_blocking=True)
             handle.event = torch.cuda.Event()
-            handle.event.record(lead0)
-            handle.device_out = runs
+            handle.event.record(self._streams[dev])
+            handle.device_out = out
             handle.host_out = host
         return handle

@@ -20,7 +20,8 @@ JSON line; any failure exits non-zero:
             search (synth lane sets, min_hitlen 16 and 22, first hits) and
             sharded walk (edge rows and 65,536 random rows, max_steps
             4096 and 1) on (2, 2) and (1, 4) meshes of cuda:0, narrow and
-            wide, and across cards when there are several
+            wide, and across cards when there are several, also against
+            K1 and K3 on the same lanes and rows, one launch per dp row
   synth     the classify CLI on the card (host resolve), then
             GPUClassificationPipeline with host_resolve=False (device
             resolve): unpaired output and report and paired output
@@ -535,11 +536,15 @@ class Smoke:
                   search_lanes_checked=n_checked))
 
     def kernels_sharded(self) -> None:
-        """K6 against its plain versions on the synth index: the shards of
-        (2, 2) and (1, 4) meshes that repeat cuda:0, narrow and wide; when
-        the machine has several cards, meshes across them too."""
+        """K6 against its plain versions, and against K1 (no depth-12
+        prime) and K3 (full budget) on the same lanes and rows, on the
+        synth index: the shards of (2, 2) and (1, 4) meshes that repeat
+        cuda:0, narrow and wide; when the machine has several cards,
+        meshes across them too. Each call launches each kernel once per
+        dp row."""
         m, torch, np = self.m, self.torch, self.np
-        shd = m["sharded"]
+        shd, cuda, eng_mod, fmt = (m["sharded"], m["cuda"], m["engine"],
+                                   m["fm_torch"])
         idx = m["load_cf_index"](os.path.join(FIX, "synth"))
         meshes = [("cuda:0 (2, 2)", self.mesh(2, 2)),
                   ("cuda:0 (1, 4)", self.mesh(1, 4))]
@@ -568,6 +573,9 @@ class Smoke:
         for wide in (False, True):
             qrows = torch.from_numpy(rows_np.astype(
                 np.int64 if wide else np.int32)).to(self.dev)
+            fm = fmt.DeviceFMIndex.build(idx, device=self.dev, wide=wide,
+                                         deep_ftab=False)
+            k3 = fmt.resolve_rows(fm, qrows)
             for name, mesh in meshes:
                 what = f"{name} wide={wide}"
                 index = shd.MeshIndex(
@@ -576,6 +584,8 @@ class Smoke:
                 eng = shd.ShardedSearchEngine(index)
                 pad = [np.zeros(0, np.uint8)] * (-len(sets["reads"])
                                                  % mesh.n_dp)
+                cuda.reset_launches()
+                calls = 0
                 for mhl in (16, 22):
                     inc = 10 if 2 * mhl <= 33 else 2 * mhl - 33
                     for sname, seqs in sets.items():
@@ -583,10 +593,14 @@ class Smoke:
                             eng, seqs + [np.zeros(0, np.uint8)]
                             * (-len(seqs) % mesh.n_dp))
                         args = (reads, lens, st, SEARCH_MH, mhl, inc, False)
+                        got = shd.sharded_search(index, *args)
                         self.equal(f"sharded search {sname} {what} "
-                                   f"mhl={mhl}",
-                                   shd.sharded_search(index, *args),
+                                   f"mhl={mhl}", got,
                                    shd.sharded_search_plain(index, *args))
+                        self.equal(f"sharded search vs K1 {sname} {what} "
+                                   f"mhl={mhl}", got,
+                                   eng_mod.search_lanes(fm, *args, False))
+                        calls += 1
                 seqs = sets["reads_n"] + pad
                 offs = np.random.default_rng(3).integers(
                     0, 90, len(seqs)).astype(np.int32)
@@ -595,17 +609,27 @@ class Smoke:
                 self.equal(f"sharded first hits {what}",
                            shd.sharded_search(index, *args),
                            shd.sharded_search_plain(index, *args))
+                calls += 1
                 for steps in (shd.SHARDED_RESOLVE_MAX_STEPS, 1):
+                    got = shd.sharded_resolve(index, qrows, steps)
                     self.equal(f"sharded resolve {what} max_steps={steps}",
-                               [shd.sharded_resolve(index, qrows, steps)],
-                               [shd.sharded_resolve_plain(index, qrows,
-                                                          steps)])
+                               [got], [shd.sharded_resolve_plain(index, qrows,
+                                                                 steps)])
+                    if steps == shd.SHARDED_RESOLVE_MAX_STEPS:
+                        self.equal(f"sharded resolve vs K3 {what}", [got],
+                                   [k3])
+                launches = (cuda.LAUNCHES["sharded_search"],
+                            cuda.LAUNCHES["sharded_resolve"])
+                if launches != (calls * mesh.n_dp, 2 * mesh.n_dp):
+                    fail(f"K6 on {what}: {launches} launches for {calls} "
+                         f"searches and 2 walks over {mesh.n_dp} dp rows")
                 checked.append(what)
         emit(dict(phase="kernels_sharded", checked=checked,
                   search="equal on the synth lane sets (min_hitlen 16 and "
-                         "22, first hits)",
+                         "22, first hits), and to K1",
                   resolve=f"equal on {rows_np.shape[0]} rows (max_steps "
-                          "4096 and 1)",
+                          "4096 and 1), and to K3 at 4096",
+                  launches="one per dp row per call",
                   cross_card=cross))
 
     def synth(self) -> None:
@@ -1079,7 +1103,9 @@ class Smoke:
         before = cuda.LAUNCHES["sharded_search"]
         got = shd.sharded_search(index, *args)
         per_batch = cuda.LAUNCHES["sharded_search"] - before
-        steps = (per_batch - 1) // (MESH_FM + 1)
+        if per_batch != mesh.n_dp:
+            fail(f"sharded search: {per_batch} launches for {mesh.n_dp} "
+                 "dp rows")
         want, plain_ms = self.time_host(
             lambda: shd.sharded_search_plain(index, *args))
         err = self.equal("sharded search (full batch)", got, want)
@@ -1095,12 +1121,12 @@ class Smoke:
         L = len(seqs)
         io = (reads.numel() + 8 * L + L * SEARCH_MH * (2 * rsz + 8)
               + 8 * L + 5 * rsz)
+        b = self.bound(nbytes + io, int_ops, popc)
         self.rows["sharded_search"].update(
             launches=pipes[True][1]["sharded_search"], max_abs_err=err,
             ms=ms, plain_ms=plain_ms, library_ms=None, lanes=L,
-            mesh=[1, MESH_FM], steps_per_batch=steps,
-            launches_per_batch=per_batch, ms_per_step=ms / max(steps, 1),
-            host_clock_ms=host_ms, **self.bound(nbytes + io, int_ops, popc))
+            mesh=[1, MESH_FM], launches_per_batch=per_batch,
+            host_clock_ms=host_ms, x_bound=ms / b["bound_ms"], **b)
 
         # ---- K6's walk on that batch's presolve rows, against its plain
         # version and K3's values ----
@@ -1108,12 +1134,16 @@ class Smoke:
         before = cuda.LAUNCHES["sharded_resolve"]
         tidx = shd.sharded_resolve(index, flat)
         per_call = cuda.LAUNCHES["sharded_resolve"] - before
+        if per_call != mesh.n_dp:
+            fail(f"sharded resolve: {per_call} launches for {mesh.n_dp} "
+                 "dp rows")
         want, plain_ms = self.time_host(
             lambda: shd.sharded_resolve_plain(index, flat))
         err = self.equal("sharded resolve (full batch)", [tidx], [want])
         self.equal("sharded resolve vs K3 (full batch)", [tidx],
                    [st["tidx"]])
         ms = self.time_cuda(lambda: shd.sharded_resolve(index, flat), 5)
+        _, host_ms = self.time_host(lambda: shd.sharded_resolve(index, flat))
         stats = {}
         shd.sharded_resolve_plain(index, flat, stats=stats)
         lf_steps = sum(r.numel() for r in stats.get("bwt_rows", []))
@@ -1121,17 +1151,17 @@ class Smoke:
         del stats, tables
         io = (flat.numel() * (rsz + 4)
               + index.rows[0].brows.numel() * (rsz + 4) + 5 * rsz)
+        b = self.bound(nbytes + io, int_ops, popc)
         self.rows["sharded_resolve"].update(
             launches=pipes[False][1]["sharded_resolve"], max_abs_err=err,
             ms=ms, plain_ms=plain_ms, library_ms=None, rows=flat.numel(),
-            mesh=[1, MESH_FM], lf_steps=lf_steps,
-            steps_per_call=per_call // (MESH_FM + 1),
-            launches_per_call=per_call,
-            **self.bound(nbytes + io, int_ops, popc))
+            mesh=[1, MESH_FM], lf_steps=lf_steps, launches_per_call=per_call,
+            host_clock_ms=host_ms, x_bound=ms / b["bound_ms"], **b)
         emit(dict(phase="full_sharded_kernels", card=self.smi,
-                  search_steps_per_batch=steps,
                   search_ms=self.rows["sharded_search"]["ms"],
-                  resolve_ms=ms))
+                  search_host_clock_ms=self.rows["sharded_search"][
+                      "host_clock_ms"],
+                  resolve_ms=ms, resolve_host_clock_ms=host_ms))
 
 def main(argv) -> int:
     if argv:

@@ -214,7 +214,8 @@ def test_sharded_kernels_match_plain(cuda, port_index, dp, n_fm, wide):
     search on the synth lanes (min_hitlen 16 and 22, and first-hit mode
     from offsets) and the resolve walk on the edge rows and 65,536 random
     rows (full budget and max_steps=1), each against its plain version on
-    the same card, and the search against K1 on the unsharded index."""
+    the same card, and the search against K1 on the unsharded index.
+    Each call launches each kernel once per dp row."""
     from centrifuge_tpu_torch import _cuda
     from centrifuge_tpu_torch.classify.engine import (BatchSearchEngine,
                                                       search_lanes)
@@ -246,7 +247,7 @@ def test_sharded_kernels_match_plain(cuda, port_index, dp, n_fm, wide):
         for k, p, s in zip(got, sharded_search_plain(index, *args),
                            search_lanes(fm, *args, False)):
             assert torch.equal(k, p) and torch.equal(k, s)
-    assert _cuda.LAUNCHES["sharded_search"] > 3 * (n_fm + 1)
+    assert _cuda.LAUNCHES["sharded_search"] == 3 * dp
     g = np.random.default_rng(4)
     rows = torch.from_numpy(np.concatenate([
         [0, port_index.zoff, port_index.bwt_len - 1],
@@ -257,7 +258,7 @@ def test_sharded_kernels_match_plain(cuda, port_index, dp, n_fm, wide):
         want = sharded_resolve_plain(index, rows, steps)
         assert torch.equal(sharded_resolve(index, rows, steps), want)
         assert bool((want < 0).any()) == (steps == 1)
-    assert _cuda.LAUNCHES["sharded_resolve"] > 0
+    assert _cuda.LAUNCHES["sharded_resolve"] == 2 * dp
 
 
 def test_sharded_engine_matches_cpu_mesh(cuda, port_index):
@@ -288,8 +289,9 @@ def test_sharded_engine_matches_cpu_mesh(cuda, port_index):
 
 
 def test_sharded_across_cards(cuda, port_index):
-    """K6 with its shards, and its dp rows, on different cards (peer
-    copies of the queries and partials): the search and the walk against
+    """K6 with its shards, and its dp rows, on different cards (each
+    row's kernel reads the other cards' shards through peer mappings):
+    the search and the walk against
     their plain versions, and the mesh engine and resolver against the
     same engine on a CPU mesh. Skips on a machine with one card."""
     n = torch.cuda.device_count()
@@ -334,3 +336,26 @@ def test_sharded_across_cards(cuda, port_index):
                 np.int64 if wide else np.int32))])
         for a, b in zip(*outs):
             np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_without_peer_access_raises(cuda, port_index, monkeypatch):
+    """A dp row over two cards without peer access is refused when its
+    mesh index is placed, naming both cards, before any table is placed:
+    K6 reads the other card's shard in place and has no copy path.
+    can_device_access_peer is patched, so this runs on one card."""
+    from centrifuge_tpu_torch.parallel.sharded import (MeshIndex,
+                                                       ShardedFMArrays,
+                                                       make_mesh)
+    asked = []
+
+    def no_peer(a, b):
+        asked.append((a, b))
+        return False
+
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", no_peer)
+    other = torch.device("cuda", cuda.index + 1)
+    mesh = make_mesh(1, 2, [cuda, other])
+    with pytest.raises(RuntimeError, match=f"cuda:{cuda.index} has no peer "
+                       f"access to cuda:{other.index}"):
+        MeshIndex(ShardedFMArrays.build(port_index, 2), mesh)
+    assert asked == [(cuda.index, other.index)]

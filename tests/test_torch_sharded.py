@@ -96,6 +96,49 @@ def test_mesh_repeats_devices():
         Mesh([["cpu", "meta"]])
 
 
+def test_shard_descriptor_words(port_index):
+    """Each dp row's descriptor of its shards for K6 (the words
+    csrc/fm_common.cuh shard_set reads): the counts, zoff, the lead's
+    fchr, then per shard its three tables' addresses and first keys."""
+    from centrifuge_tpu_torch.parallel.sharded import shard_descriptor
+    index = _cpu_index(port_index, 2, 2, False)
+    for row in index.rows:
+        d = shard_descriptor(index, row).tolist()
+        assert d[:6] == [2, index.nblk_per, index.nftab_per,
+                         index.noffs_per, index.zoff, row.fchr.data_ptr()]
+        for f, s in enumerate(row.shards):
+            assert d[6 + 6 * f: 12 + 6 * f] == [
+                s.blocks.data_ptr(), s.ftab_tb.data_ptr(), s.offs.data_ptr(),
+                f * index.nblk_per, f * index.nftab_per, f * index.noffs_per]
+        assert len(d) == 6 + 6 * 2
+
+
+@pytest.mark.parametrize("case", ["no_peer_access", "too_many_shards"])
+def test_cuda_mesh_refused_before_placing(port_index, monkeypatch, case):
+    """What MeshIndex refuses on a CUDA mesh before it places any table
+    (torch.cuda is patched, so this runs without a card): a dp row over
+    two cards without peer access, named in the error (K6 reads the other
+    card's shard in place; nothing falls back to copies), and more fm
+    shards than K6's kernel parameter describes."""
+    from centrifuge_tpu_torch.parallel.sharded import (MAX_SHARDS, MeshIndex,
+                                                       ShardedFMArrays,
+                                                       make_mesh)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: False)
+    if case == "no_peer_access":
+        sh = ShardedFMArrays.build(port_index, 2)
+        mesh = make_mesh(1, 2, ["cuda:0", "cuda:1"])
+        with pytest.raises(RuntimeError,
+                           match="cuda:0 has no peer access to cuda:1"):
+            MeshIndex(sh, mesh)
+    else:
+        n_fm = 2 * MAX_SHARDS
+        sh = ShardedFMArrays.build(port_index, n_fm)
+        with pytest.raises(ValueError, match=f"at most {MAX_SHARDS}"):
+            MeshIndex(sh, make_mesh(1, n_fm, ["cuda:0"] * n_fm))
+
+
 @pytest.mark.parametrize("dp,n_fm,wide", [(2, 2, False), (1, 4, True),
                                           (2, 1, False)])
 def test_plain_search_matches_single_device(port_index, dp, n_fm, wide):

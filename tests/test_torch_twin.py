@@ -2,7 +2,7 @@
 for the host with g++ (csrc/cpu_twin.cpp), against the port's plain
 PyTorch versions: rank, the depth-12 ftab, the SA resolve walk and its
 exits, the presolve pick, and K6's search and walk over BWT-range shards
-(its lane functions driven step by step as csrc/sharded.cu drives them)
+(the same lane loops over the shard reader that csrc/sharded.cu launches)
 here, the search in test_torch_engine.py.
 Nothing else on a machine without nvcc compiles the code the card runs.
 Integers throughout: exact equality."""
@@ -29,10 +29,9 @@ _SIGS = {
     "resolve": [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I32,
                 _P, _P, _I64],
     "pick": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P],
-    "shard_search": [_P, _P, _P, _I64, _I64, _I64, _I32, _P, _I64, _P, _P,
-                     _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32],
-    "shard_resolve": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P, _I64,
-                      _I32, _I64, _P, _P, _I64],
+    "shard_search": [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                     _I32, _I32, _I32],
+    "shard_resolve": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _I64],
 }
 
 
@@ -59,8 +58,10 @@ def build_twin(out_dir: str):
         for name, sig in _SIGS.items():
             fn = getattr(lib, f"twin_{name}_{kind}")
             fn.argtypes = sig
-            # the K6 twin loops return their step count
-            fn.restype = _I64 if name.startswith("shard") else None
+            # the search and K6 twin loops return the longest lane's
+            # count of table reads
+            fn.restype = _I64 if name.startswith("shard") \
+                or name == "search" else None
     return lib
 
 
@@ -69,9 +70,10 @@ def ptr(t):
 
 
 def twin_search(lib, fm, reads, lengths, start, mh, min_hitlen, increment,
-                first_hit_only, deep):
+                first_hit_only, deep, reads_out=None):
     """The search kernel's lane function over all lanes, on the host;
-    same arguments and outputs as engine.search_lanes."""
+    same arguments and outputs as engine.search_lanes. reads_out, a
+    list, receives the longest lane's count of table reads."""
     L = reads.shape[0]
     idt = fm.row_dtype
     outs = [torch.empty((L, mh), dtype=idt), torch.empty((L, mh), dtype=idt),
@@ -81,10 +83,13 @@ def twin_search(lib, fm, reads, lengths, start, mh, min_hitlen, increment,
             torch.empty(L, dtype=torch.int32)]
     deep = bool(deep and fm.ftab12_rows is not None)
     fn = lib.twin_search_wide if fm.wide else lib.twin_search_narrow
-    fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(fm.ftab_rows),
-       ptr(fm.ftab12_rows) if deep else None, ptr(reads), reads.shape[1],
-       ptr(lengths), ptr(start), *[ptr(o) for o in outs], L, mh, min_hitlen,
-       increment, int(first_hit_only), int(deep))
+    most = fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(fm.ftab_rows),
+              ptr(fm.ftab12_rows) if deep else None, ptr(reads),
+              reads.shape[1], ptr(lengths), ptr(start),
+              *[ptr(o) for o in outs], L, mh, min_hitlen, increment,
+              int(first_hit_only), int(deep))
+    if reads_out is not None:
+        reads_out.append(most)
     return outs
 
 
@@ -239,61 +244,83 @@ def test_twin_pick_matches_plain(twin, wide, khits):
     assert int(nrows.min()) < int(nrows.max())
 
 
-def twin_shard_search(lib, sh, reads, lengths, start, mh, min_hitlen,
+def twin_shard_search(lib, index, reads, lengths, start, mh, min_hitlen,
                       increment, first_hit_only):
-    """K6's search lane functions over the shards of a ShardedFMArrays
-    (the slices of its padded tables), on the host: (the 6 outputs of
-    sharded_search, the number of steps)."""
+    """K6's search lane loop over the shards of a one-row CPU MeshIndex
+    (from the descriptor csrc/sharded.cu takes), on the host: (the 6
+    outputs of sharded_search, the longest lane's count of table
+    reads)."""
+    from centrifuge_tpu_torch.parallel.sharded import shard_descriptor
     L = reads.shape[0]
-    idt = torch.int64 if sh.wide else torch.int32
-    outs = [torch.empty((L, mh), dtype=idt), torch.empty((L, mh), dtype=idt),
+    outs = [torch.empty((L, mh), dtype=index.row_dtype),
+            torch.empty((L, mh), dtype=index.row_dtype),
             torch.empty((L, mh), dtype=torch.int32),
             torch.empty((L, mh), dtype=torch.int32),
             torch.empty(L, dtype=torch.int32),
             torch.empty(L, dtype=torch.int32)]
-    tabs = [torch.from_numpy(a) for a in (sh.blocks.view(np.int32),
-                                          sh.ftab_tb, sh.fchr)]
-    fn = lib.twin_shard_search_wide if sh.wide \
+    desc = shard_descriptor(index, index.rows[0])
+    fn = lib.twin_shard_search_wide if index.wide \
         else lib.twin_shard_search_narrow
-    steps = fn(*[ptr(t) for t in tabs], sh.zoff, sh.nblk_per, sh.nftab_per,
-               sh.n_fm, ptr(reads), reads.shape[1], ptr(lengths), ptr(start),
-               *[ptr(o) for o in outs], L, mh, min_hitlen, increment,
-               int(first_hit_only))
-    return outs, steps
+    most = fn(desc.ctypes.data, ptr(reads), reads.shape[1], ptr(lengths),
+              ptr(start), *[ptr(o) for o in outs], L, mh, min_hitlen,
+              increment, int(first_hit_only))
+    return outs, most
 
 
-def twin_shard_resolve(lib, sh, rows, budget):
-    """K6's walk lane functions over the shards, on the host: (int32
-    values, steps)."""
-    tabs = [torch.from_numpy(a) for a in (
-        sh.blocks.view(np.int32), sh.offs, sh.fchr, sh.boundary_rows,
-        sh.boundary_refs)]
+def twin_shard_resolve(lib, index, rows, max_steps):
+    """K6's walk lane loop over the shards of a one-row CPU MeshIndex, on
+    the host: (int32 values, the longest walk's rounds of table
+    reads)."""
+    from centrifuge_tpu_torch.parallel.sharded import shard_descriptor
+    row = index.rows[0]
     out = torch.empty(rows.shape, dtype=torch.int32)
-    fn = lib.twin_shard_resolve_wide if sh.wide \
+    desc = shard_descriptor(index, row)
+    fn = lib.twin_shard_resolve_wide if index.wide \
         else lib.twin_shard_resolve_narrow
-    steps = fn(*[ptr(t) for t in tabs[:3]], sh.zoff, sh.nblk_per,
-               sh.noffs_per, sh.n_fm, sh.offrate, ptr(tabs[3]), ptr(tabs[4]),
-               tabs[3].numel(), int(sh.npat <= 0xFFFF), budget, ptr(rows),
-               ptr(out), rows.numel())
-    return out, steps
+    most = fn(desc.ctypes.data, ptr(row.brows), ptr(row.brefs),
+              row.brows.numel(), index.offrate, int(index.npat <= 0xFFFF),
+              max_steps, ptr(rows), ptr(out), rows.numel())
+    return out, most
 
 
-@pytest.mark.parametrize("n_fm,wide", [(2, False), (4, True)],
-                         ids=["fm2_narrow", "fm4_wide"])
+def sharded_arrays(idx, n_fm, wide):
+    """ShardedFMArrays.build, or, for an fm axis that does not divide the
+    ftab (3), the one-shard arrays with each table padded by hand to a
+    multiple of n_fm: ragged shards whose last holds padding, and keys
+    past the padded tables that no shard owns."""
+    import dataclasses
+
+    from centrifuge_tpu_torch.parallel.sharded import (ShardedFMArrays,
+                                                       _pad_to)
+    if (1 << (2 * idx.ftab_chars)) % n_fm == 0:
+        return ShardedFMArrays.build(idx, n_fm, wide=wide)
+    one = ShardedFMArrays.build(idx, 1, wide=wide)
+    return dataclasses.replace(
+        one, n_fm=n_fm, blocks=_pad_to(one.blocks, n_fm),
+        ftab_tb=_pad_to(one.ftab_tb, n_fm), offs=_pad_to(one.offs, n_fm))
+
+
+@pytest.mark.parametrize("n_fm,wide", [(2, False), (4, True), (3, False)],
+                         ids=["fm2_narrow", "fm4_wide", "fm3_ragged"])
 def test_twin_sharded_matches_plain(twin, port_index, n_fm, wide):
-    """K6's lane functions (search_partials/search_advance,
-    resolve_partials/resolve_advance), driven on the host over n_fm
-    shards, against the plain sharded search (full scans at min_hitlen
-    16 and 22, first hits from offsets) and walk (full budget and cut to
-    4 LF steps); each drive ends within its step bound."""
+    """K6's lane loops (search_lane, resolve_row over the shard reader),
+    run on the host over n_fm shards, against the plain sharded search
+    (full scans at min_hitlen 16 and 22, first hits from offsets) and
+    walk (full budget and cut to 4 LF steps), and the search against the
+    one-device loop without the depth-12 prime on the same index (same
+    outputs, same count of table reads); each lane's count of table
+    reads stays within the lockstep loop's step bound. The ragged fm=3
+    shards add rows past the padded block and sample tables, which no
+    shard owns."""
     from centrifuge_tpu_torch.classify.engine import BatchSearchEngine
     from centrifuge_tpu_torch.io.fastx import read_batch
-    from centrifuge_tpu_torch.ops.fm_torch import walk_budget
+    from centrifuge_tpu_torch.ops.fm_torch import DeviceFMIndex, walk_budget
     from centrifuge_tpu_torch.parallel.sharded import (
-        MeshIndex, ShardedFMArrays, make_mesh, sharded_resolve_plain,
-        sharded_search_plain)
-    sh = ShardedFMArrays.build(port_index, n_fm, wide=wide)
+        MeshIndex, make_mesh, sharded_resolve_plain, sharded_search_plain)
+    sh = sharded_arrays(port_index, n_fm, wide)
     index = MeshIndex(sh, make_mesh(1, n_fm, ["cpu"] * n_fm))
+    fm = DeviceFMIndex.build(port_index, device="cpu", wide=wide,
+                             deep_ftab=False)
     seqs = []
     for r in read_batch([fixture_path("synth", "reads_n.fq")], limit=128):
         seqs += [r.seq, r.revcomp()]
@@ -309,19 +336,27 @@ def test_twin_sharded_matches_plain(twin, port_index, n_fm, wide):
         args = (reads, lens, start, mh, mhl,
                 10 if 2 * mhl <= 33 else 2 * mhl - 33, first)
         want = sharded_search_plain(index, *args)
-        got, steps = twin_shard_search(twin, sh, *args)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-        assert 0 < steps < 4 * reads.shape[1]
+        got, most = twin_shard_search(twin, index, *args)
+        one_most = []
+        one = twin_search(twin, fm, *args, False, reads_out=one_most)
+        for g, w, o in zip(got, want, one):
+            assert torch.equal(g, w) and torch.equal(g, o)
+        assert 0 < most < 4 * reads.shape[1]
+        assert most == one_most[0]
     rng = np.random.default_rng(6)
     rows_np = np.concatenate([_edge_rows(port_index.bwt_len, sh.zoff, rng),
                               sh.boundary_rows])
-    rows = torch.from_numpy(rows_np[rows_np < port_index.bwt_len].astype(
-        np.int64 if wide else np.int32))
+    rows_np = rows_np[rows_np < port_index.bwt_len]
+    if n_fm == 3:
+        # past the padded block table (its block no shard owns), and a
+        # sampled row whose sample index is past the padded sample table
+        past = [512 * sh.blocks.shape[0], 512 * sh.blocks.shape[0] + 7,
+                sh.offs.shape[0] << sh.offrate]
+        rows_np = np.concatenate([rows_np, past])
+    rows = torch.from_numpy(rows_np.astype(np.int64 if wide else np.int32))
     for max_steps in (4096, 1):
         want = sharded_resolve_plain(index, rows, max_steps)
-        got, steps = twin_shard_resolve(twin, sh, rows,
-                                        walk_budget(max_steps, 4))
+        got, most = twin_shard_resolve(twin, index, rows, max_steps)
         assert torch.equal(got, want)
         assert bool((want < 0).any()) == (max_steps == 1)
-        assert steps <= walk_budget(max_steps, 4) + 1
+        assert most <= walk_budget(max_steps, 4) + 1

@@ -28,10 +28,11 @@ HEADER = "fm_common.cuh"
 _P, _I64, _I32 = C.c_void_p, C.c_int64, C.c_int32
 _RANK = [_P, _P, _I64, _P, _P, _P, _I64, _P]
 _SEARCH = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
-           _I64, _I32, _I32, _I32, _I32, _I32, _P]
+           _I64, _I32, _I32, _I32, _I32, _I32, _P, _P]
 _FTAB12 = [_P, _P, _I64, _P, _P, _P, _P, _P, _P]
 _RESOLVE = [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _P,
-            _I64, _P]
+            _I64, _P, _P]
+_CONFIG = [_I32, _I64, _P]
 _PRESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
              _I64, _P]
 _SH_SEARCH = [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
@@ -39,9 +40,11 @@ _SH_SEARCH = [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
 _SH_RESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _I64, _P]
 SIGNATURES = {
     "rank": {"fm_rank_narrow": _RANK, "fm_rank_wide": _RANK},
-    "search": {"fm_search_narrow": _SEARCH, "fm_search_wide": _SEARCH},
+    "search": {"fm_search_narrow": _SEARCH, "fm_search_wide": _SEARCH,
+               "fm_search_config": _CONFIG},
     "ftab12": {"fm_ftab12_narrow": _FTAB12, "fm_ftab12_wide": _FTAB12},
-    "resolve": {"fm_resolve_narrow": _RESOLVE, "fm_resolve_wide": _RESOLVE},
+    "resolve": {"fm_resolve_narrow": _RESOLVE, "fm_resolve_wide": _RESOLVE,
+                "fm_resolve_config": _CONFIG},
     "presolve": {"fm_presolve_narrow": _PRESOLVE,
                  "fm_presolve_wide": _PRESOLVE},
     "sharded": {**{f"fm_shard_{fn}_{kind}": sig
@@ -138,6 +141,37 @@ def check(rc: int, what: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# K1 and K3 (csrc/search.cu, csrc/resolve.cu) take their lanes or rows
+# from an int32 work counter
+MAX_ITEMS = 1 << 30
+CONFIG_KEYS = ("tile", "threads", "grid", "registers", "resident_blocks")
+
+
+def persistent_config(kernel: str, wide: bool, n: int) -> dict:
+    """The launch shape of K1 ("search") or K3 ("resolve") for n lanes or
+    rows on the current card: threads per lane or row (the tile),
+    threads per block, the grid, registers per thread (ptxas's count)
+    and the resident grid it is capped at."""
+    out = (C.c_int32 * len(CONFIG_KEYS))()
+    check(getattr(lib(kernel), f"fm_{kernel}_config")(int(wide), n, out),
+          f"{kernel} config")
+    return dict(zip(CONFIG_KEYS, out))
+
+
+def work_counter(device):
+    """The zeroed int32 counter a persistent kernel takes its items from."""
+    import torch
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def require_aligned(*tensors) -> None:
+    """The row scans read the block and ftab tables in 16-byte chunks."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("kernel tables must be 16-byte aligned (a "
+                             "sliced view is not)")
 
 
 def require_cuda(*tensors) -> None:

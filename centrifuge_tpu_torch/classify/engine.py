@@ -284,10 +284,12 @@ def search_lanes(fm: DeviceFMIndex, reads: torch.Tensor,
                  lengths: torch.Tensor, start: torch.Tensor, mh: int,
                  min_hitlen: int, increment: int, first_hit_only: bool,
                  deep: bool, stats: dict = None):
-    """K1 over all lanes: the CUDA kernel for tensors on a CUDA device,
-    the plain version for tensors on the CPU. reads: uint8 [L, row_bytes]
-    reversed codes, two per byte; lengths/start: int32 [L]. Returns
-    [h_top, h_bot, h_off, h_len, nhits, sums] on the inputs' device."""
+    """K1 over all lanes: the CUDA kernel for tensors on a CUDA device
+    (csrc/search.cu: a tile of threads a lane, lanes taken from a work
+    counter), the plain version for tensors on the CPU. reads: uint8
+    [L, row_bytes] reversed codes, two per byte; lengths/start: int32
+    [L]. Returns [h_top, h_bot, h_off, h_len, nhits, sums] on the
+    inputs' device."""
     if not reads.is_cuda:
         return search_plain(fm, reads, lengths, start, mh, min_hitlen,
                             increment, first_hit_only, deep, stats=stats)
@@ -299,6 +301,12 @@ def search_lanes(fm: DeviceFMIndex, reads: torch.Tensor,
             or lengths.shape != (L,) or start.shape != (L,):
         raise ValueError("reads must be uint8 [L, row_bytes], lengths and "
                          "start int32 [L]")
+    if L >= _cuda.MAX_ITEMS:
+        raise ValueError(f"{L} lanes: the search takes fewer than "
+                         f"{_cuda.MAX_ITEMS} a call")
+    deep = bool(deep and fm.ftab12_rows is not None)
+    _cuda.require_aligned(fm.blocks, fm.ftab_rows,
+                          fm.ftab12_rows if deep else None)
     dev = reads.device
     idt = fm.row_dtype
     outs = [torch.empty((L, mh), dtype=idt, device=dev),
@@ -307,7 +315,6 @@ def search_lanes(fm: DeviceFMIndex, reads: torch.Tensor,
             torch.empty((L, mh), dtype=torch.int32, device=dev),
             torch.empty(L, dtype=torch.int32, device=dev),
             torch.empty(L, dtype=torch.int32, device=dev)]
-    deep = bool(deep and fm.ftab12_rows is not None)
     lib = _cuda.lib("search")
     fn = lib.fm_search_wide if fm.wide else lib.fm_search_narrow
     rc = fn(fm.blocks.data_ptr(), fm.fchr.data_ptr(), int(fm.zoff),
@@ -316,7 +323,7 @@ def search_lanes(fm: DeviceFMIndex, reads: torch.Tensor,
             reads.data_ptr(), reads.shape[1], lengths.data_ptr(),
             start.data_ptr(), *[o.data_ptr() for o in outs], L, mh,
             min_hitlen, increment, int(first_hit_only), int(deep),
-            _cuda.stream_ptr(dev))
+            _cuda.work_counter(dev).data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(rc, "search kernel")
     _cuda.LAUNCHES["search"] += 1
     return outs

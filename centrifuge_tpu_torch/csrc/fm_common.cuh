@@ -5,17 +5,25 @@
 // __host__ __device__, so the arithmetic the card runs is the arithmetic
 // the tests check.
 //
-// The search and the SA walk are one lane loop each (search_lane,
-// resolve_row), templated over a table reader: FlatTables, the tables of
-// one device (K1, K3), or ShardSet, the fm shards of one dp row of a mesh
-// (K6). Tables are read through the read-only path (ldg).
+// The search and the SA walk are one lane loop each (search_lane, over
+// the state that search_step advances one table read at a time, and
+// resolve_row), templated over a table reader and a group policy. The
+// reader gives the table reads: FlatTables, the tables of one device
+// (K1, K3), or ShardSet, the fm shards of one dp row of a mesh (K6).
+// The group is the threads that run one lane: Tile<G>, G threads of a
+// warp that split each block-row scan into 16-byte chunks (K1, K3), or
+// Serial<G>, one thread computing the same G parts in a loop (K6 at
+// G = 1, and the host twin at every G). Tables are read through the
+// read-only path (ldg).
 //
 // Block layout (ops/fm_torch.pack_bwt_blocks): uint32 rows of 512 bases,
 //   narrow (R = int32_t): occ[4]              | words[32]   (36 words)
 //   wide   (R = int64_t): occ_lo[4] occ_hi[4] | words[32]   (40 words)
 // 16 bases per word, little-endian 2-bit codes. Occ checkpoints are
 // global prefix counts. '$' is stored as code 0 at row zoff and the rank
-// subtracts it once.
+// subtracts it once. Rows are 144 and 160 bytes and the words start at
+// byte 16 and 32, so with the table 16-byte aligned (the wrappers check)
+// every 16-byte chunk of a row is too.
 //
 // Packed ftab rows (ops/fm_torch.pack_ftab_rows), same row width:
 //   narrow: 16 (top, bot) pairs per row; wide: 8 (top_lo, top_hi, bot_lo,
@@ -25,11 +33,18 @@
 #include <stdint.h>
 
 #if defined(__CUDACC__)
+#include <cooperative_groups.h>
+#include <cooperative_groups/reduce.h>
+#include <cuda_runtime.h>
+
+#include <mutex>
 #define FM_HD __host__ __device__ __forceinline__
 #define FM_HDM __host__ __device__ __forceinline__
+#define FM_UNROLL _Pragma("unroll")
 #else
 #define FM_HD static inline
 #define FM_HDM inline
+#define FM_UNROLL
 #endif
 
 namespace fm {
@@ -75,11 +90,48 @@ FM_HD int64_t ldg(const int64_t* p) {
 #endif
 }
 
+// 16 and 8 bytes of an index table in one load (16- and 8-byte aligned)
+struct U4 {
+  uint32_t v[4];
+};
+struct U2 {
+  uint32_t v[2];
+};
+FM_HD U4 ldg4(const uint32_t* p) {
+#if defined(__CUDA_ARCH__)
+  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+  return U4{{q.x, q.y, q.z, q.w}};
+#else
+  return U4{{p[0], p[1], p[2], p[3]}};
+#endif
+}
+FM_HD U2 ldg2(const uint32_t* p) {
+#if defined(__CUDA_ARCH__)
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  return U2{{q.x, q.y}};
+#else
+  return U2{{p[0], p[1]}};
+#endif
+}
+// word i (0..3) of a chunk, by selects: an index into the registers that
+// the compiler cannot resolve would put the chunk in local memory
+FM_HD uint32_t pick(const U4& q, int i) {
+  return i == 0 ? q.v[0] : i == 1 ? q.v[1] : i == 2 ? q.v[2] : q.v[3];
+}
+
 FM_HD int popc32(uint32_t x) {
 #if defined(__CUDA_ARCH__)
   return __popc(x);
 #else
   return __builtin_popcount(x);
+#endif
+}
+
+FM_HD int popc64(uint64_t x) {
+#if defined(__CUDA_ARCH__)
+  return __popcll(x);
+#else
+  return __builtin_popcountll(x);
 #endif
 }
 
@@ -131,26 +183,17 @@ FM_HD R lf(const uint32_t* blocks, const R* fchr, R zoff, R r, int c) {
   return fchr[c] + rank<R>(blocks, zoff, r, c);
 }
 
-// BWT code at row r ('$' reads as the code 0 it is stored as), from the
-// block row that holds r
-template <typename R>
-FM_HD int bwt_in_row(const uint32_t* row, R r) {
-  const uint32_t* words = row + Geo<R>::kWordOff;
-  return (int)((ldg(words + (int)((r & 511) >> 4)) >> (2 * (int)(r & 15))) &
-               3u);
-}
-
 template <typename R>
 FM_HD void ftab_entry(const uint32_t* rows, int64_t fi, R* top, R* bot) {
   const uint32_t* row = rows + (fi >> Geo<R>::kPerShift) * Geo<R>::kWidth;
   if constexpr (sizeof(R) == 8) {
-    const int q = (int)(fi & 7) * 4;
-    *top = (R)(((uint64_t)ldg(row + q + 1) << 32) | (uint64_t)ldg(row + q));
-    *bot = (R)(((uint64_t)ldg(row + q + 3) << 32) | (uint64_t)ldg(row + q + 2));
+    const U4 q = ldg4(row + (int)(fi & 7) * 4);
+    *top = (R)(((uint64_t)q.v[1] << 32) | (uint64_t)q.v[0]);
+    *bot = (R)(((uint64_t)q.v[3] << 32) | (uint64_t)q.v[2]);
   } else {
-    const int p = (int)(fi & 15) * 2;
-    *top = (R)ldg(row + p);
-    *bot = (R)ldg(row + p + 1);
+    const U2 q = ldg2(row + (int)(fi & 15) * 2);
+    *top = (R)q.v[0];
+    *bot = (R)q.v[1];
   }
 }
 
@@ -203,20 +246,6 @@ FM_HD void ftab12_entry(const uint32_t* blocks, const R* fchr, R zoff,
 // ftab10(fi), the depth-10 ftab entry; deep() and ftab12_at(fi), the
 // depth-12 prime; sample(si), SA sample si; kMasked, whether row() can
 // be null; kUnroll, the walk's step-bound granularity.
-
-// LF(r, c) and BWT[r] from the block row holding r (a rank of 0 and code
-// 0 where none does: an owner-masked read that no shard answers)
-template <typename R, typename T>
-FM_HD R lf_in(const T& t, const uint32_t* row, R r, int c) {
-  if (T::kMasked && row == nullptr) return t.fc(c);
-  return t.fc(c) + rank_in_row<R>(row, t.zoff, r, c);
-}
-
-template <typename R, typename T>
-FM_HD int bwt_in(const uint32_t* row, R r) {
-  if (T::kMasked && row == nullptr) return 0;
-  return bwt_in_row<R>(row, r);
-}
 
 // The whole index on one device: packed block and ftab rows, the
 // (ceil(n/8), 8)-padded sample table, whose index is clipped to it.
@@ -307,7 +336,8 @@ struct ShardSet {
 // A dp row's ShardSet from its descriptor words (parallel/sharded.py
 // shard_descriptor): n_fm, nblk_per, nftab_per, noffs_per, zoff, fchr,
 // then per shard blocks, ftab_tb, offs, blk_base, ftab_base, offs_base.
-// False when n_fm is outside 1..kMaxShards.
+// False when n_fm is outside 1..kMaxShards or a shard's block table is
+// not 16-byte aligned (the row scan reads it in 16-byte chunks).
 template <typename R>
 inline bool shard_set(const int64_t* d, ShardSet<R>* s) {
   if (d[0] < 1 || d[0] > kMaxShards) return false;
@@ -320,6 +350,7 @@ inline bool shard_set(const int64_t* d, ShardSet<R>* s) {
   s->fchr = (const R*)(uintptr_t)d[5];
   for (int f = 0; f < s->n_fm; ++f) {
     const int64_t* e = d + 6 + 6 * f;
+    if (e[0] % 16 != 0) return false;
     s->blocks[f] = (const uint32_t*)(uintptr_t)e[0];
     s->ftab_tb[f] = (const R*)(uintptr_t)e[1];
     s->offs[f] = (const int32_t*)(uintptr_t)e[2];
@@ -328,6 +359,346 @@ inline bool shard_set(const int64_t* d, ShardSet<R>* s) {
     s->offs_base[f] = e[5];
   }
   return true;
+}
+
+// ---- the groups that run one lane ----
+//
+// Every thread of a group runs the whole lane loop on the same values;
+// only the scan of a block row is split. Part p of G reads the 16-byte
+// chunks p, p + G, ... of the row's 8 and counts their bases, and the
+// group sums the parts, so every thread gets the same sum:
+//   Tile<G>    G threads of a warp (cooperative_groups tiled_partition),
+//              on the card: each computes the part of its rank, and
+//              cg::reduce sums them over the tile's own mask (tiles of
+//              one warp are at different steps of different lanes)
+//   Serial<G>  one thread that computes the G parts in a loop and sums
+//              them: the host twin runs the very part functions the
+//              card runs, at every G; K6 runs G = 1
+// leader() writes a lane's results; rank() and size() spread its slot
+// initialisation; sync() orders the two.
+
+template <int G>
+struct Serial {
+  static constexpr int kG = G;
+  template <typename Part>
+  FM_HDM uint32_t sum(const Part& part) const {
+    uint32_t s = 0;
+    for (int p = 0; p < G; ++p) s += part(p);
+    return s;
+  }
+  FM_HDM bool leader() const { return true; }
+  FM_HDM int rank() const { return 0; }
+  FM_HDM int size() const { return 1; }
+  FM_HDM void sync() const {}
+};
+
+#if defined(__CUDACC__)
+namespace cg = cooperative_groups;
+
+// The members run on the card only; the host pass of nvcc sees bodies
+// that it never calls.
+template <int G>
+struct Tile {
+  static constexpr int kG = G;
+  cg::thread_block_tile<G> tile;
+  template <typename Part>
+  FM_HDM uint32_t sum(const Part& part) const {
+#if defined(__CUDA_ARCH__)
+    return cg::reduce(tile, part((int)tile.thread_rank()),
+                      cg::plus<uint32_t>());
+#else
+    return part(0);
+#endif
+  }
+  FM_HDM bool leader() const { return rank() == 0; }
+  FM_HDM int rank() const {
+#if defined(__CUDA_ARCH__)
+    return (int)tile.thread_rank();
+#else
+    return 0;
+#endif
+  }
+  FM_HDM int size() const { return G; }
+  FM_HDM void sync() const {
+#if defined(__CUDA_ARCH__)
+    tile.sync();
+#endif
+  }
+  // the next work item: the leader's atomicAdd on the counter, broadcast
+  // to the tile
+  FM_HDM int64_t take(int32_t* next) const {
+#if defined(__CUDA_ARCH__)
+    int32_t v = 0;
+    if (tile.thread_rank() == 0) v = atomicAdd(next, 1);
+    return (int64_t)tile.shfl(v, 0);
+#else
+    return 0;
+#endif
+  }
+};
+
+// The grid of a persistent kernel that takes its items from a counter,
+// `tile` threads an item: the blocks of `threads` that the card keeps
+// resident (the occupancy query, made once per device and kept), capped
+// at the blocks that n items fill. *resident receives the uncapped grid.
+constexpr int kMaxDevices = 64;
+
+template <auto Kernel>
+cudaError_t persistent_grid(int threads, int tile, int64_t n, int* grid,
+                            int* resident = nullptr) {
+  static std::mutex mu;
+  static int kept[kMaxDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int res = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (kept[dev] == 0) {
+      int per_sm = 0, sms = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                        threads, 0);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+      if (e != cudaSuccess) return e;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      kept[dev] = per_sm * sms;
+    }
+    res = kept[dev];
+  }
+  const int64_t need = (n * tile + threads - 1) / threads;
+  *grid = (int)(need < res ? need : res);
+  if (resident != nullptr) *resident = res;
+  return cudaSuccess;
+}
+#endif
+
+// ---- the scan of a block row by a group (K1, K3, K6) ----
+
+constexpr int kChunks = 8;  // 16-byte chunks of a row's 128-byte words
+
+// Words 2h and 2h + 1 of a chunk as one 64-bit word (32 bases)
+FM_HD uint64_t half(const U4& q, int h) {
+  return h == 0 ? ((uint64_t)q.v[1] << 32 | q.v[0])
+                : ((uint64_t)q.v[3] << 32 | q.v[2]);
+}
+
+// The low bit of each of the first n bases of 32 (n clamped to 0..32):
+// the mask never shifts by 64.
+FM_HD uint64_t low_bits_before(int n) {
+  if (n <= 0) return 0;
+  return n >= 32 ? 0x5555555555555555ull
+                 : ((1ull << (2 * n)) - 1ull) & 0x5555555555555555ull;
+}
+
+// The bases of chunk k before `within`, counted by bit plane: bits 0-8
+// those whose low bit is set (codes 1 and 3), bits 9-17 those whose high
+// bit is set (2 and 3), bits 18-26 code 3. No count reaches 512, so sums
+// of these words never carry from one field into the next.
+FM_HD uint32_t planes_before(const U4& q, int k, int within) {
+  uint32_t s = 0;
+  for (int h = 0; h < 2; ++h) {
+    const uint64_t m = low_bits_before(within - 64 * k - 32 * h);
+    const uint64_t lo = half(q, h) & m, hi = (half(q, h) >> 1) & m;
+    s += (uint32_t)popc64(lo) + ((uint32_t)popc64(hi) << 9) +
+         ((uint32_t)popc64(lo & hi) << 18);
+  }
+  return s;
+}
+
+// The bases of chunk k before `within` equal to the char whose repeated
+// pattern (c * 0x5555...) is given: XOR-NOT turns them into 11
+FM_HD uint32_t count_before(const U4& q, int k, uint64_t pattern,
+                            int within) {
+  uint32_t s = 0;
+  for (int h = 0; h < 2; ++h) {
+    const uint64_t x = ~(half(q, h) ^ pattern);
+    s += (uint32_t)popc64(x & (x >> 1) &
+                          low_bits_before(within - 64 * k - 32 * h));
+  }
+  return s;
+}
+
+// the count of c before `within` from the summed planes (code 0 is every
+// base that is none of the others)
+FM_HD int count_of(uint32_t f, int within, int c) {
+  const int lo = (int)(f & 511), hi = (int)((f >> 9) & 511),
+            c3 = (int)((f >> 18) & 511);
+  return c == 3 ? c3 : c == 2 ? hi - c3 : c == 1 ? lo - c3
+                                                 : within - lo - hi + c3;
+}
+
+// Part p (of G) of the scan of one row. kAll: the planes before
+// `within` in its chunks (the counts of every code, for a walk that
+// learns the code from this scan); else the count of the char whose
+// pattern is given (bits 0-9). Either way, from the part holding it, the
+// code at `within` (bits 27-28). A chunk wholly past `within` is not
+// read. Nothing branches on the part: the threads of a tile hold
+// different chunks, and a branch on it would split the tile. A chunk not
+// read counts nothing, as its mask is empty.
+template <int G, bool kAll>
+struct ScanPart {
+  const uint32_t* words;
+  int within;
+  uint64_t pattern;
+  FM_HDM uint32_t operator()(int p) const {
+    uint32_t s = 0;
+    FM_UNROLL
+    for (int i = 0; i < kChunks / G; ++i) {
+      const int k = i * G + p;
+      U4 q{};
+      if (64 * k <= within) q = ldg4(words + 4 * k);
+      s += kAll ? planes_before(q, k, within)
+                : count_before(q, k, pattern, within);
+      const uint32_t code =
+          (pick(q, (within >> 4) & 3) >> (2 * (within & 15))) & 3u;
+      s += ((within >> 6) == k ? code : 0u) << 27;
+    }
+    return s;
+  }
+};
+
+// Part p (of G) of two ranks of one char: before `wa` in row a (bits
+// 0-15) and before `wb` in row b (bits 16-31). The loads of both rows
+// are issued before either is counted, and a row that both ranks share
+// is read once. A chunk wholly past its rank, or of a null row, is not
+// read; as in ScanPart nothing branches on the part, and a chunk past
+// its rank counts nothing (a null row's count is not used).
+template <int G>
+struct PairPart {
+  const uint32_t* a;
+  const uint32_t* b;
+  int wa, wb;
+  uint64_t pattern;
+  FM_HDM uint32_t operator()(int p) const {
+    constexpr int K = kChunks / G;
+    const bool same = a == b;
+    U4 qa[K]{}, qb[K]{};
+    FM_UNROLL
+    for (int i = 0; i < K; ++i) {
+      const int k = i * G + p;
+      const bool la = a != nullptr && 64 * k < wa;
+      const bool lb = b != nullptr && 64 * k < wb;
+      if (same) {
+        if (la || lb) qa[i] = qb[i] = ldg4(a + 4 * k);
+      } else {
+        if (la) qa[i] = ldg4(a + 4 * k);
+        if (lb) qb[i] = ldg4(b + 4 * k);
+      }
+    }
+    uint32_t s = 0;
+    FM_UNROLL
+    for (int i = 0; i < K; ++i) {
+      const int k = i * G + p;
+      s += count_before(qa[i], k, pattern, wa) +
+           (count_before(qb[i], k, pattern, wb) << 16);
+    }
+    return s;
+  }
+};
+
+// A row's occ checkpoint: one 16-byte load narrow, two wide, the char
+// picked after (K3 learns it from the same scan). A null row reads 0.
+template <typename R>
+struct Occ {
+  U4 lo, hi;
+  FM_HDM R at(int c) const {
+    if constexpr (sizeof(R) == 8) {
+      return (R)(((uint64_t)pick(hi, c) << 32) | (uint64_t)pick(lo, c));
+    } else {
+      return (R)pick(lo, c);
+    }
+  }
+};
+
+template <typename R>
+FM_HD Occ<R> load_occ(const uint32_t* row) {
+  Occ<R> o{};
+  if (row == nullptr) return o;
+  o.lo = ldg4(row);
+  if constexpr (sizeof(R) == 8) o.hi = ldg4(row + 4);
+  return o;
+}
+
+// BWT[r] into *code, and the rank before r of c (c < 0: of BWT[r]), from
+// one scan of r's block row by the group. A row that no table holds
+// reads code 0 and rank 0: an owner-masked read that no shard answers.
+template <typename R, typename T, typename Grp>
+FM_HD R scan_rank(const T& t, const Grp& g, R r, int c, int* code) {
+  const uint32_t* row = t.row(r);
+  if (T::kMasked && row == nullptr) {
+    *code = 0;
+    return 0;
+  }
+  const int within = (int)(r & 511);
+  const Occ<R> occ = load_occ<R>(row);
+  const uint32_t* words = row + Geo<R>::kWordOff;
+  int n;
+  if (c < 0) {
+    const uint32_t f = g.sum(ScanPart<Grp::kG, true>{words, within, 0});
+    *code = (int)(f >> 27);
+    c = *code;
+    n = count_of(f, within, c);
+  } else {
+    const uint32_t f = g.sum(ScanPart<Grp::kG, false>{
+        words, within, (uint64_t)c * 0x5555555555555555ull});
+    *code = (int)(f >> 27);
+    n = (int)(f & 1023);
+  }
+  return occ.at(c) + (R)n - (R)((c == 0 && t.zoff < r) ? 1 : 0);
+}
+
+// The ranks of c before a and before b, the two rows' loads in flight
+// together (one summed word carries both counts).
+template <typename R, typename T, typename Grp>
+FM_HD void rank_pair(const T& t, const Grp& g, R a, R b, int c, R* ra,
+                     R* rb) {
+  const uint32_t* rowa = t.row(a);
+  const uint32_t* rowb = t.row(b);
+  const Occ<R> oa = load_occ<R>(rowa), ob = load_occ<R>(rowb);
+  const uint32_t f = g.sum(PairPart<Grp::kG>{
+      rowa == nullptr ? nullptr : rowa + Geo<R>::kWordOff,
+      rowb == nullptr ? nullptr : rowb + Geo<R>::kWordOff, (int)(a & 511),
+      (int)(b & 511), (uint64_t)c * 0x5555555555555555ull});
+  *ra = (T::kMasked && rowa == nullptr)
+            ? (R)0
+            : oa.at(c) + (R)(f & 0xFFFFu) -
+                  (R)((c == 0 && t.zoff < a) ? 1 : 0);
+  *rb = (T::kMasked && rowb == nullptr)
+            ? (R)0
+            : ob.at(c) + (R)(f >> 16) - (R)((c == 0 && t.zoff < b) ? 1 : 0);
+}
+
+// fchr[0..3] in registers, loaded once a lane or row
+template <typename R>
+struct Fc4 {
+  R f[4];
+  FM_HDM R at(int c) const {
+    return c == 0 ? f[0] : c == 1 ? f[1] : c == 2 ? f[2] : f[3];
+  }
+};
+
+template <typename R, typename T>
+FM_HD Fc4<R> load_fc(const T& t) {
+  return Fc4<R>{{t.fc(0), t.fc(1), t.fc(2), t.fc(3)}};
+}
+
+// Ask for r's block row (its first and last line) ahead of its scan, so
+// that the fetch overlaps what the lane does before the scan. A hint: no
+// thread waits on it, and the host does nothing.
+template <typename R, typename T>
+FM_HD void prefetch_row(const T& t, R r) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t* row = t.row(r);
+  if (T::kMasked && row == nullptr) return;
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(row));
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(row + Geo<R>::kWidth - 1));
+#else
+  (void)t;
+  (void)r;
+#endif
 }
 
 // ---- the greedy search (K1, K6) ----
@@ -356,137 +727,200 @@ FM_HD int read_code(const uint8_t* rd, int pos) {
   return (pos & 1) ? (b >> 4) : (b & 15);
 }
 
-// The greedy partial-hit scan of one (read, strand) lane, run to the end
-// (hi_aligner.h partialSearch under the classifier's driver policy).
+// The greedy partial-hit scan of one (read, strand) lane (hi_aligner.h
+// partialSearch under the classifier's driver policy), as a state that
+// advances one table read at a time: search_begin sets it up and each
+// search_step makes at most one read (an ftab entry or an extension
+// step). A kernel's loop then takes a new lane in the very iteration
+// that another group's lane ends, so no group of a warp waits at a loop's
+// exit for a longer lane. search_lane runs one lane to its end.
 // Outputs match classify/engine.search_loop of the JAX package: hits in
 // emission order, an empty hit is top == bot == -1, unused slots hold
 // (-1, -1, 0, 0), and a lane that emits more than mh hits keeps
 // overwriting its last slot (the caller re-runs it with a larger mh).
 // With a depth-12 table (t.deep()) a start first tries the 12-char prime.
-// Returns the lane's count of table reads (ftab entries and extension
-// steps): the lockstep loop's step count for this lane.
-template <typename R, typename T>
-FM_HD int search_lane(const T& t, const SearchArgs<R>& a, int64_t lane) {
-  const uint8_t* rd = a.reads + lane * a.row_bytes;
-  const int n = a.lengths[lane];
+// The group g runs the lane: its threads clear the slots between them,
+// and the leader writes each hit, in emission order, after they have (so
+// an overflowing lane's last slot ends as its last hit).
+template <typename R>
+struct SearchLane {
+  int64_t lane;
+  const uint8_t* rd;
+  int n, cur, nh, sum;
+  int reads;  // table reads (ftab entries and extension steps)
+  int dep;    // the next char of an extension
+  bool no12;  // the deep prime of this start came back empty
+  bool ext;   // an extension is under way: (top, bot) matches [cur, dep)
+  R top, bot;
+};
+
+// the lane's counts, once it is done
+template <typename R, typename Grp>
+FM_HD void search_end(const SearchArgs<R>& a, const Grp& g,
+                      const SearchLane<R>& s) {
+  if (g.leader()) {
+    a.nhits[s.lane] = s.nh;
+    a.sums[s.lane] = s.sum;
+  }
+}
+
+// Sets up lane; false when it has nothing to scan (its counts written).
+template <typename R, typename Grp>
+FM_HD bool search_begin(const SearchArgs<R>& a, int64_t lane, const Grp& g,
+                        SearchLane<R>* s) {
   R* ht = a.h_top + lane * a.mh;
   R* hb = a.h_bot + lane * a.mh;
   int32_t* ho = a.h_off + lane * a.mh;
   int32_t* hl = a.h_len + lane * a.mh;
-  for (int s = 0; s < a.mh; ++s) {
-    ht[s] = -1;
-    hb[s] = -1;
-    ho[s] = 0;
-    hl[s] = 0;
+  for (int k = g.rank(); k < a.mh; k += g.size()) {
+    ht[k] = -1;
+    hb[k] = -1;
+    ho[k] = 0;
+    hl[k] = 0;
   }
-  int cur = a.start[lane];
-  int nh = 0, sum = 0, reads = 0;
-  bool no12 = false;  // the deep prime of this start came back empty
-  while (cur < n) {
-    const int left = n - cur;
-    bool go = false;
-    R top = 0, bot = 0;
-    int dep = cur;
+  g.sync();
+  s->lane = lane;
+  s->rd = a.reads + lane * a.row_bytes;
+  s->n = a.lengths[lane];
+  s->cur = a.start[lane];
+  s->nh = s->sum = s->reads = 0;
+  s->dep = s->cur;
+  s->no12 = s->ext = false;
+  s->top = s->bot = 0;
+  if (s->cur < s->n) return true;
+  search_end<R>(a, g, *s);
+  return false;
+}
+
+// One step of the lane: at most one table read, then the hit it ends, if
+// any. False once the lane is done (its counts written).
+template <typename R, typename T, typename Grp>
+FM_HD bool search_step(const T& t, const SearchArgs<R>& a,
+                       const Fc4<R>& fc, const Grp& g, SearchLane<R>& s) {
+  const int n = s.n;
+  R e_top = -1, e_bot = -1;
+  int e_len, e_cur;
+  if (s.ext) {
+    // ---- extend one char; top and bot rank from their own blocks, both
+    // rows read at once; a one-row range extends only if BWT[top] == c
+    // and top is not the '$' row, the code and the rank from one read of
+    // its row ----
+    bool more = s.dep < n;
+    const int c = more ? read_code(s.rd, s.dep) : 4;
+    more = more && c <= 3;
+    R t2 = 0, b2 = 0;
+    if (more && s.bot - s.top == 1) {
+      more = s.top != t.zoff;
+      if (more) {
+        ++s.reads;
+        int code;
+        const R rk = scan_rank<R>(t, g, s.top, c, &code);
+        more = code == c;
+        t2 = fc.at(c) + rk;
+        b2 = t2 + 1;
+      }
+    } else if (more) {
+      ++s.reads;
+      R rt, rb;
+      rank_pair<R>(t, g, s.top, s.bot, c, &rt, &rb);
+      t2 = fc.at(c) + rt;
+      b2 = fc.at(c) + rb;
+      more = b2 > t2;
+    }
+    if (more) {
+      s.top = t2;
+      s.bot = b2;
+      ++s.dep;
+      return true;
+    }
+    e_top = s.top;
+    e_bot = s.bot;
+    e_len = s.dep - s.cur;
+    e_cur = s.dep;
+    s.ext = false;
+  } else {
     // ---- start: deep 12-char prime, else the 10-char ftab window ----
-    if (t.deep() && !no12 && left >= 12) {
+    const int left = n - s.cur;
+    if (t.deep() && !s.no12 && left >= 12) {
       int64_t fi12 = 0;
       bool has_n = false;
       for (int j = 0; j < 12; ++j) {
-        const int c = read_code(rd, cur + j);
+        const int c = read_code(s.rd, s.cur + j);
         has_n |= c > 3;
         fi12 |= (int64_t)(c > 3 ? 3 : c) << (2 * j);
       }
       if (!has_n) {
-        t.ftab12_at(fi12, &top, &bot);
-        ++reads;
-        if (bot <= top) {
-          // an empty 12-mer range retries this start on the plain path
-          no12 = true;
-          continue;
-        }
-        go = true;
-        dep = cur + 12;
+        t.ftab12_at(fi12, &s.top, &s.bot);
+        ++s.reads;
+        // an empty 12-mer range retries this start on the plain path
+        s.no12 = s.bot <= s.top;
+        s.ext = !s.no12;
+        s.dep = s.cur + 12;
+        return true;
       }
     }
-    R e_top = -1, e_bot = -1;
-    int e_off = cur, e_len, e_cur;
-    if (!go) {
-      if (left < kFtabChars) {
-        e_len = left;
-        e_cur = n;
+    if (left < kFtabChars) {
+      e_len = left;
+      e_cur = n;
+    } else {
+      int fn = kFtabChars;
+      int64_t fi = 0;
+      for (int j = 0; j < kFtabChars; ++j) {
+        const int c = read_code(s.rd, s.cur + j);
+        if (c > 3 && fn == kFtabChars) fn = j;
+        fi |= (int64_t)(c > 3 ? 3 : c) << (2 * j);
+      }
+      if (fn < kFtabChars) {
+        e_len = fn + 1;
+        e_cur = s.cur + fn + 1;
       } else {
-        int fn = kFtabChars;
-        int64_t fi = 0;
-        for (int j = 0; j < kFtabChars; ++j) {
-          const int c = read_code(rd, cur + j);
-          if (c > 3 && fn == kFtabChars) fn = j;
-          fi |= (int64_t)(c > 3 ? 3 : c) << (2 * j);
+        t.ftab10(fi, &s.top, &s.bot);
+        ++s.reads;
+        if (s.bot > s.top) {
+          s.ext = true;
+          s.dep = s.cur + kFtabChars;
+          return true;
         }
-        if (fn < kFtabChars) {
-          e_len = fn + 1;
-          e_cur = cur + fn + 1;
-        } else {
-          t.ftab10(fi, &top, &bot);
-          ++reads;
-          if (bot > top) {
-            go = true;
-            dep = cur + kFtabChars;
-          } else {
-            e_len = kFtabChars;
-            e_cur = cur + kFtabChars;
-          }
-        }
+        e_len = kFtabChars;
+        e_cur = s.cur + kFtabChars;
       }
     }
-    if (go) {
-      // ---- extend one char at a time; top and bot rank from their own
-      // blocks; a one-row range extends only if BWT[top] == c and
-      // top is not the '$' row ----
-      while (dep < n) {
-        const int c = read_code(rd, dep);
-        if (c > 3) break;
-        R t2, b2;
-        if (bot - top == 1) {
-          if (top == t.zoff) break;
-          const uint32_t* row = t.row(top);
-          ++reads;
-          if (bwt_in<R, T>(row, top) != c) break;
-          t2 = lf_in<R>(t, row, top, c);
-          b2 = t2 + 1;
-        } else {
-          ++reads;
-          t2 = lf_in<R>(t, t.row(top), top, c);
-          b2 = lf_in<R>(t, t.row(bot), bot, c);
-          if (b2 <= t2) break;
-        }
-        top = t2;
-        bot = b2;
-        ++dep;
-      }
-      e_top = top;
-      e_bot = bot;
-      e_len = dep - cur;
-      e_cur = dep;
-    }
-    // ---- emit ----
-    const int slot = nh < a.mh ? nh : a.mh - 1;
-    ht[slot] = e_top;
-    hb[slot] = e_bot;
-    ho[slot] = e_off;
-    hl[slot] = e_len;
-    ++nh;
-    if (e_len >= a.min_hitlen) sum += e_len;
-    no12 = false;
-    // ---- driver policy: skip one position after a long hit, stop when
-    // the tail can no longer hold a min_hitlen hit ----
-    if (a.first_hit_only || e_cur >= n) break;
-    const int next = e_len > a.increment ? e_cur + 1 : e_cur;
-    if (next + a.min_hitlen >= n) break;
-    cur = next;
   }
-  a.nhits[lane] = nh;
-  a.sums[lane] = sum;
-  return reads;
+  // ---- emit ----
+  if (g.leader()) {
+    const int64_t slot = s.lane * a.mh + (s.nh < a.mh ? s.nh : a.mh - 1);
+    a.h_top[slot] = e_top;
+    a.h_bot[slot] = e_bot;
+    a.h_off[slot] = s.cur;
+    a.h_len[slot] = e_len;
+  }
+  ++s.nh;
+  if (e_len >= a.min_hitlen) s.sum += e_len;
+  s.no12 = false;
+  // ---- driver policy: skip one position after a long hit, stop when
+  // the tail can no longer hold a min_hitlen hit ----
+  if (!a.first_hit_only && e_cur < n) {
+    const int next = e_len > a.increment ? e_cur + 1 : e_cur;
+    if (next + a.min_hitlen < n) {
+      s.cur = next;
+      return true;
+    }
+  }
+  search_end<R>(a, g, s);
+  return false;
+}
+
+// One lane run to its end by the group g; returns its count of table
+// reads: the lockstep loop's step count for this lane.
+template <typename R, typename T, typename Grp>
+FM_HD int search_lane(const T& t, const SearchArgs<R>& a, int64_t lane,
+                      const Grp& g) {
+  const Fc4<R> fc = load_fc<R>(t);
+  SearchLane<R> s;
+  if (search_begin<R>(a, lane, g, &s))
+    while (search_step<R>(t, a, fc, g, s)) {
+    }
+  return s.reads;
 }
 
 // ---- SA resolution (K3, K6): SA row -> sequence index ----
@@ -506,41 +940,30 @@ struct ResolveArgs {
 // sampled row gives its sample (the reader's: clipped to the padded
 // table, or 0 where no shard owns it); else a boundary row gives its
 // ref, checked only when the last boundary row is nonzero and the row
-// does not pass it; else -1.
-// The exits given the row's sample value (read by the caller, only for a
-// sampled row) and the genome-boundary table.
-template <typename R>
-FM_HD int32_t row_exit(R row, R zoff, bool sampled, int32_t sample,
-                       const R* brows, const int32_t* brefs, int64_t nb,
-                       int32_t narrow) {
-  int32_t t = -1;
-  if (sampled) {
-    t = sample;
-  } else if (nb > 0) {
-    int64_t lo = 0, hi = nb;  // searchsorted, side "left"
+// does not pass it; else -1. Every thread of a group runs the binary
+// search over the boundary rows (a few hundred bytes, held in L1).
+template <typename R, typename T>
+FM_HD int32_t try_offset(const T& t, const ResolveArgs<R>& a, R row) {
+  int32_t v = -1;
+  if ((row & (((R)1 << a.offrate) - 1)) == 0) {
+    v = t.sample(row >> a.offrate);
+  } else if (a.nb > 0) {
+    int64_t lo = 0, hi = a.nb;  // searchsorted, side "left"
     while (lo < hi) {
       const int64_t mid = (lo + hi) >> 1;
-      if (brows[mid] < row) {
+      if (ldg(a.brows + mid) < row) {
         lo = mid + 1;
       } else {
         hi = mid;
       }
     }
-    const int64_t pos = lo < nb ? lo : nb - 1;
-    const R last = brows[nb - 1];
-    if (brows[pos] == row && last > 0 && row <= last)
-      t = narrow ? (brefs[pos] & 0xFFFF) : brefs[pos];
+    const int64_t pos = lo < a.nb ? lo : a.nb - 1;
+    const R last = ldg(a.brows + a.nb - 1);
+    if (ldg(a.brows + pos) == row && last > 0 && row <= last)
+      v = a.narrow ? (ldg(a.brefs + pos) & 0xFFFF) : ldg(a.brefs + pos);
   }
-  if (row == zoff) t = 0;
-  return t;
-}
-
-template <typename R, typename T>
-FM_HD int32_t try_offset(const T& t, const ResolveArgs<R>& a, R row) {
-  const bool sampled = (row & (((R)1 << a.offrate) - 1)) == 0;
-  const int32_t sample = sampled ? t.sample(row >> a.offrate) : 0;
-  return row_exit<R>(row, t.zoff, sampled, sample, a.brows, a.brefs, a.nb,
-                     a.narrow);
+  if (row == t.zoff) v = 0;
+  return v;
 }
 
 // The walk's LF step bound: the JAX walks count steps and test max_steps
@@ -553,18 +976,24 @@ FM_HD int64_t walk_budget(int64_t max_steps, int unroll) {
 
 // The LF walk of one row until an exit, or -1 after walk_budget steps.
 // A row's result does not depend on the other rows of its batch, so the
-// per-row walk gives the lockstep walk's output. *rounds, where given,
-// receives the row's rounds of table reads (its exits, then one per LF
-// step): the lockstep walk's step count for this row.
-template <typename R, typename T>
+// per-row walk gives the lockstep walk's output. Each LF step takes the
+// code and the rank from one scan of the row by the group g, and the
+// next row's fetch is asked for while its exits are checked. *rounds,
+// where given, receives the row's rounds of table reads (its exits, then
+// one per LF step): the lockstep walk's step count for this row.
+template <typename R, typename T, typename Grp>
 FM_HD int32_t resolve_row(const T& t, const ResolveArgs<R>& a, R row,
-                          int64_t* rounds = nullptr) {
+                          const Grp& g, int64_t* rounds = nullptr) {
+  const Fc4<R> fc = load_fc<R>(t);
+  prefetch_row<R>(t, row);
   int32_t v = try_offset<R>(t, a, row);
   const int64_t budget = walk_budget(a.max_steps, T::kUnroll);
   int64_t k = 0;
   for (; v < 0 && k < budget; ++k) {
-    const uint32_t* rw = t.row(row);
-    row = lf_in<R>(t, rw, row, bwt_in<R, T>(rw, row));
+    int code;
+    const R rk = scan_rank<R>(t, g, row, -1, &code);
+    row = fc.at(code) + rk;
+    prefetch_row<R>(t, row);
     v = try_offset<R>(t, a, row);
   }
   if (rounds != nullptr) *rounds = k + 1;

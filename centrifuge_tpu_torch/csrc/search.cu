@@ -1,38 +1,69 @@
-// K1: the greedy FM partial-hit search, one thread per (read, strand)
-// lane, each lane run to its end with no lockstep.
+// K1: the greedy FM partial-hit search. A tile of kTile threads runs one
+// (read, strand) lane to its end; a persistent grid feeds the tiles
+// lanes from a work counter.
 //
 // Replaces the JAX package's classify/engine.py search_loop (entered at
 // batched_search_packed) and its step ops/fm_jax.py fused_step_lookup1.
 // The TPU version steps every lane in lockstep inside a lax.while_loop,
 // with one-row deferral, survivor compaction and masked-sum selects, all
-// of which exist for the TPU's lack of a scalar gather; here each thread
+// of which exist for the TPU's lack of a scalar gather; here each tile
 // follows its own lane (fm_common.cuh search_lane over the one-device
-// FlatTables reader; K6 runs the same loop over its shards) and the
-// outputs are the same.
+// FlatTables reader and the Tile group; K6 runs the same loop over its
+// shards, one thread a lane) and the outputs are the same.
 //
-// Bound on an H100: every extension step ranks one (one-row range) or
-// two (top and bot) rows, each needing its occ checkpoint and part of
-// one block's words, at data-dependent addresses. The bound counts each
-// 32-byte sector of the block and ftab tables the lanes touch once (at
-// most the 72 MB block table at 256 Mbp), plus the reads in and the hit
-// buffers out, over 3.35 TB/s, against the rank arithmetic at the
-// card's integer and popcount rates. In practice the chain of
-// dependent row reads per lane makes it latency-bound; the design keeps
-// enough lanes in flight (65,536 per batch, 128 threads per block) for
-// the card to overlap them. Lanes diverge (each stops when its own read
-// ends); the simple kernel accepts that.
+// Bound on an H100: bytes. Every extension step ranks one (one-row
+// range) or two (top and bot) block rows at data-dependent addresses,
+// each needing the row's occ checkpoint and the words before the rank.
+// The bound counts each 32-byte sector of the block and ftab tables that
+// the lanes touch once (at most the 72 MB block table at 256 Mbp), plus
+// the reads in and the hit buffers out, over 3.35 TB/s (PERF.md §6). What
+// held the one-thread-per-lane design far from it: every thread of a
+// warp ranked in a different row with one 4-byte load per word, so each
+// warp-wide load touched 32 rows for 4 useful bytes each, and a warp ran
+// until its longest lane ended. The design:
+//   - a tile reads a row's words in 16-byte chunks, each thread one or
+//     two, in a loop of fixed trip count (a chunk past the rank is not
+//     read), and sums its parts with cg::reduce; the occ checkpoint is
+//     one 16-byte load (two wide);
+//   - a two-row step issues both rows' loads before it reduces either,
+//     and a one-row step takes BWT[top] and the rank from one read;
+//   - the grid is what stays resident (the occupancy query, once per
+//     device), capped at what L lanes fill, and a tile whose lane ends
+//     takes the next from an int32 counter that the wrapper zeroes.
+//     The kernel's one loop makes one table read a turn (search_step),
+//     so a tile whose lane ends takes its next lane in the same turn:
+//     the tiles of a warp reconverge every turn instead of waiting at an
+//     extension loop's exit for the warp's longest extension. Results go
+//     by lane index, so they do not depend on the order.
 #include <cuda_runtime.h>
 
 #include "fm_common.cuh"
 
 namespace {
 
+// Threads per lane: 4, chosen on the card over 8 (PERF.md §6,
+// evaluation/tile_sweep.py, which builds this source at each size).
+constexpr int kTile = 4;
+constexpr int kThreads = 128;
+
 template <typename R>
-__global__ void search_kernel(fm::FlatTables<R> t, fm::SearchArgs<R> a,
-                              int64_t L) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  fm::search_lane<R>(t, a, lane);
+__global__ void __launch_bounds__(kThreads)
+    search_kernel(const fm::FlatTables<R> t, const fm::SearchArgs<R> a,
+                  int64_t L, int32_t* __restrict__ next) {
+  const fm::Tile<kTile> g{
+      fm::cg::tiled_partition<kTile>(fm::cg::this_thread_block())};
+  const fm::Fc4<R> fc = fm::load_fc<R>(t);
+  fm::SearchLane<R> s;
+  bool live = false;
+  for (;;) {  // one table read a turn: a lane that ends is replaced at once
+    if (live) {
+      live = fm::search_step<R>(t, a, fc, g, s);
+    } else {
+      const int64_t lane = g.take(next);
+      if (lane >= L) break;
+      live = fm::search_begin<R>(a, lane, g, &s);
+    }
+  }
 }
 
 template <typename R>
@@ -42,7 +73,7 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
            void* h_top, void* h_bot, void* h_off, void* h_len, void* nhits,
            void* sums, int64_t L, int32_t mh, int32_t min_hitlen,
            int32_t increment, int32_t first_hit_only, int32_t deep,
-           void* stream) {
+           void* next, void* stream) {
   fm::FlatTables<R> t{};
   t.blocks = (const uint32_t*)blocks;
   t.fchr = (const R*)fchr;
@@ -65,12 +96,32 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
   a.increment = increment;
   a.first_hit_only = first_hit_only;
   if (L > 0) {
-    const int threads = 128;
-    const int64_t grid = (L + threads - 1) / threads;
-    search_kernel<R><<<(unsigned)grid, threads, 0, (cudaStream_t)stream>>>(
-        t, a, L);
+    int grid = 0;
+    const cudaError_t e =
+        fm::persistent_grid<search_kernel<R>>(kThreads, kTile, L, &grid);
+    if (e != cudaSuccess) return (int)e;
+    search_kernel<R><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        t, a, L, (int32_t*)next);
   }
   return (int)cudaGetLastError();
+}
+
+// The launch shape for L lanes: tile, threads a block, grid, registers
+// a thread (ptxas's count, from cudaFuncGetAttributes), resident grid.
+template <typename R>
+int config(int64_t L, int32_t* out) {
+  int grid = 0, resident = 0;
+  cudaError_t e = fm::persistent_grid<search_kernel<R>>(kThreads, kTile, L,
+                                                        &grid, &resident);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, search_kernel<R>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = kTile;
+  out[1] = kThreads;
+  out[2] = grid;
+  out[3] = attr.numRegs;
+  out[4] = resident;
+  return 0;
 }
 
 }  // namespace
@@ -82,12 +133,16 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
       const void* lengths, const void* start, void* h_top, void* h_bot,    \
       void* h_off, void* h_len, void* nhits, void* sums, int64_t L,        \
       int32_t mh, int32_t min_hitlen, int32_t increment,                   \
-      int32_t first_hit_only, int32_t deep, void* stream) {                \
+      int32_t first_hit_only, int32_t deep, void* next, void* stream) {    \
     return launch<R>(blocks, fchr, zoff, ftab, ftab12, reads, row_bytes,   \
                      lengths, start, h_top, h_bot, h_off, h_len, nhits,    \
                      sums, L, mh, min_hitlen, increment, first_hit_only,   \
-                     deep, stream);                                        \
+                     deep, next, stream);                                  \
   }
 
 FM_SEARCH_ENTRY(fm_search_narrow, int32_t)
 FM_SEARCH_ENTRY(fm_search_wide, int64_t)
+
+extern "C" int fm_search_config(int32_t wide, int64_t L, int32_t* out) {
+  return wide ? config<int64_t>(L, out) : config<int32_t>(L, out);
+}

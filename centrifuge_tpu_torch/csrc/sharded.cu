@@ -1,7 +1,9 @@
 // K6: the greedy FM search and the SA resolve walk over an index whose
 // block rows, ftab entries and SA samples are split by range over n_fm
 // shards. Two kernels, one launch per dp row of the mesh each, on the
-// row's lead device; one thread runs one lane (or row) to its own end:
+// row's lead device; one thread runs one lane (or row) to its own end
+// (the one-thread group fm::Serial<1>, which scans a row's 8 chunks of
+// 16 bytes itself; K1 and K3 run the same loops with a tile a lane):
 //   search   fm_common.cuh search_lane over the row's ShardSet (K1's
 //            loop without the depth-12 prime)
 //   resolve  fm_common.cuh resolve_row over the row's ShardSet (K3's loop
@@ -42,7 +44,7 @@ template <typename R>
 __global__ void search_kernel(const __grid_constant__ fm::ShardSet<R> s,
                               const fm::SearchArgs<R> a, int64_t L) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < L) fm::search_lane<R>(s, a, lane);
+  if (lane < L) fm::search_lane<R>(s, a, lane, fm::Serial<1>{});
 }
 
 template <typename R>
@@ -51,7 +53,8 @@ __global__ void resolve_kernel(const __grid_constant__ fm::ShardSet<R> s,
                                const R* __restrict__ rows,
                                int32_t* __restrict__ tidx, int64_t n) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) tidx[i] = fm::resolve_row<R>(s, a, rows[i]);
+  if (i < n)
+    tidx[i] = fm::resolve_row<R>(s, a, rows[i], fm::Serial<1>{});
 }
 
 template <typename R>

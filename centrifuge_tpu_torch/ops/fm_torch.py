@@ -425,14 +425,19 @@ def resolve_rows_plain(fm: DeviceFMIndex, rows: torch.Tensor,
 def resolve_rows(fm: DeviceFMIndex, rows: torch.Tensor,
                  max_steps: int = RESOLVE_MAX_STEPS) -> torch.Tensor:
     """K3 over rows (row dtype [N]) -> int32 [N] sequence indexes, -1
-    where unresolved: the CUDA kernel (csrc/resolve.cu, one thread per
-    row) for CUDA tensors, the plain version for CPU tensors."""
+    where unresolved: the CUDA kernel (csrc/resolve.cu: a tile of
+    threads a row, rows taken from a work counter) for CUDA tensors, the
+    plain version for CPU tensors."""
     if not (rows.is_cuda or fm.blocks.is_cuda):
         return resolve_rows_plain(fm, rows, max_steps)
     _cuda.require_cuda(fm.blocks, fm.fchr, fm.offs, fm.boundary_rows,
                        fm.boundary_refs, rows)
     if rows.dtype != fm.row_dtype or rows.dim() != 1:
         raise ValueError(f"rows must be a 1-d {fm.row_dtype} tensor")
+    if rows.numel() >= _cuda.MAX_ITEMS:
+        raise ValueError(f"{rows.numel()} rows: the walk takes fewer than "
+                         f"{_cuda.MAX_ITEMS} a call")
+    _cuda.require_aligned(fm.blocks)
     out = torch.empty(rows.shape, dtype=torch.int32, device=rows.device)
     if rows.numel() == 0:
         return out
@@ -442,7 +447,9 @@ def resolve_rows(fm: DeviceFMIndex, rows: torch.Tensor,
             fm.offs.data_ptr(), fm.offs.numel(), fm.boundary_rows.data_ptr(),
             fm.boundary_refs.data_ptr(), fm.boundary_rows.numel(),
             fm.offrate, int(fm.npat <= 0xFFFF), max_steps, rows.data_ptr(),
-            out.data_ptr(), rows.numel(), _cuda.stream_ptr(rows.device))
+            out.data_ptr(), rows.numel(),
+            _cuda.work_counter(rows.device).data_ptr(),
+            _cuda.stream_ptr(rows.device))
     _cuda.check(rc, "resolve kernel")
     _cuda.LAUNCHES["resolve"] += 1
     return out

@@ -333,7 +333,9 @@ def shard_descriptor(index: MeshIndex, row: MeshRow) -> np.ndarray:
     sample counts, zoff, the address of fchr on the lead, then per shard
     the addresses of its blocks, ftab pairs and samples and its first
     block row, ftab entry and sample. Shard f owns keys [f * per,
-    (f + 1) * per) of each table."""
+    (f + 1) * per) of each table. Block tables must be 16-byte aligned
+    (the row scan reads them in 16-byte chunks)."""
+    _cuda.require_aligned(*[s.blocks for s in row.shards])
     words = [len(row.shards), index.nblk_per, index.nftab_per,
              index.noffs_per, int(index.zoff), row.fchr.data_ptr()]
     for s in row.shards:

@@ -21,7 +21,10 @@ JSON line; any failure exits non-zero:
             sharded walk (edge rows and 65,536 random rows, max_steps
             4096 and 1) on (2, 2) and (1, 4) meshes of cuda:0, narrow and
             wide, and across cards when there are several, also against
-            K1 and K3 on the same lanes and rows, one launch per dp row
+            K1 and K3 on the same lanes and rows, one launch per dp row;
+            K1's and K3's launch shape: a tile of more than one thread a
+            lane or row, a persistent grid capped at what the items fill
+            (one block for the 2-lane first-hit search)
   synth     the classify CLI on the card (host resolve), then
             GPUClassificationPipeline with host_resolve=False (device
             resolve): unpaired output and report and paired output
@@ -48,7 +51,9 @@ JSON line; any failure exits non-zero:
             reads/s, kernel times at this size by CUDA events beside
             their plain versions and bounds (K0 on K4's level-1 queries,
             K1 and K5 on the first batch, K3 on that batch's presolve
-            rows), peak device memory
+            rows, with K1's and K3's tile, grid and registers, and the
+            plain versions' lockstep steps and longest walk: the
+            longest chains of dependent reads), peak device memory
   full_sharded  the same reads through a (1, 4) mesh of cuda:0 (K6),
             host and device resolve, each stream byte-equal to the
             single-device host-resolve stream; K6's search on the first
@@ -68,6 +73,7 @@ over the card's integer and popcount issue rates.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -426,17 +432,40 @@ class Smoke:
         self.name = torch.cuda.get_device_name(0)
         self.count = torch.cuda.device_count()
         cap = torch.cuda.get_device_capability(0)
+        cuda = self.m["cuda"]
         t0 = time.perf_counter()
-        logs = self.m["cuda"].build_all()
+        cuda.build_all()
         build_s = time.perf_counter() - t0
         regs = {}
-        for name, log in logs.items():
-            regs[name] = [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln]
+        for name in cuda.SIGNATURES:    # the compiler logs of the builds
+            with open(os.path.join(cuda.BUILD_DIR, f"{name}.log")) as f:
+                log = f.read()
+            regs[name], entry = [], ""
+            for ln in log.splitlines():
+                # "Compiling entry function '..search_kernelIiE..'": the
+                # kernel and its row type (i: narrow, l: wide)
+                k = re.search(r"([a-z_]+_kernel)I([il])E", ln)
+                if "entry function" in ln and k:
+                    entry = (f"{k.group(1)} "
+                             f"{'narrow' if k.group(2) == 'i' else 'wide'}: ")
+                elif "registers" in ln or "spill" in ln:
+                    regs[name].append(entry + ln.split(":", 1)[-1].strip())
+        self.ptxas = regs
         emit(dict(phase="env", device=self.name, count=self.count,
                   capability=list(cap), nvidia_smi=self.smi,
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernel_build_s=round(build_s, 3), ptxas=regs))
+
+    def launch_shape(self, kernel: str, wide: bool, n: int) -> dict:
+        """K1's or K3's launch for n lanes or rows: a tile of more than
+        one thread each, and a persistent grid, the resident blocks
+        capped at what n items fill."""
+        cfg = self.m["cuda"].persistent_config(kernel, wide, n)
+        need = -(-n * cfg["tile"] // cfg["threads"])
+        if cfg["tile"] < 2 or cfg["grid"] != min(cfg["resident_blocks"],
+                                                  need):
+            fail(f"{kernel} launch shape for {n} items: {cfg}")
+        return cfg
 
     def kernels(self) -> None:
         m, torch, np = self.m, self.torch, self.np
@@ -527,13 +556,21 @@ class Smoke:
                     self.equal(f"presolve {name} wide={wide} khits={khits}",
                                list(eng_mod.presolve_lanes(*args)),
                                list(eng_mod.presolve_plain(*args)))
+        shapes = {}
+        for wide in (False, True):
+            if self.launch_shape("search", wide, 2)["grid"] != 1:
+                fail("the 2-lane first-hit search launches more than one "
+                     "block")
+            shapes["wide" if wide else "narrow"] = dict(
+                search=self.launch_shape("search", wide, 2 * BATCH_READS),
+                resolve=self.launch_shape("resolve", wide, 4 * BATCH_READS))
         emit(dict(phase="kernels", ftab12="equal (narrow, wide)",
                   rank="equal on 65536 pairs (narrow, wide)",
                   resolve="equal on 65536 rows + edges (narrow, wide; "
                           "max_steps 4096 and 1)",
                   presolve="equal on the synth lane sets (narrow, wide; "
                            "khits 5 and 16)",
-                  search_lanes_checked=n_checked))
+                  search_lanes_checked=n_checked, launch_shapes=shapes))
 
     def kernels_sharded(self) -> None:
         """K6 against its plain versions, and against K1 (no depth-12
@@ -916,6 +953,8 @@ class Smoke:
         stats = {}
         eng_mod.search_plain(*args, stats=stats)
         nbytes, int_ops, popc = self.traffic(fm, stats)
+        # the plain lockstep loop's steps: its longest lane's chain
+        longest = len(stats.get("bwt_rows", []))
         del stats
         rsz = fm.fchr.element_size()
         L = len(seqs)
@@ -925,7 +964,10 @@ class Smoke:
         self.rows["search"].update(
             launches=launches["search"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=None, lanes=L,
-            **self.bound(nbytes + io, int_ops, popc))
+            lockstep_steps=longest,
+            **self.bound(nbytes + io, int_ops, popc),
+            **self.launch_shape("search", fm.wide, L),
+            ptxas=self.ptxas.get("search", []))
 
         # ---- K5 on that batch's first-pass hit buffers, as the
         # device-resolve path's dispatch runs it ----
@@ -957,6 +999,7 @@ class Smoke:
         stats = {}
         fmt.resolve_rows_plain(fm, flat, stats=stats)
         steps = sum(r.numel() for r in stats.get("bwt_rows", []))
+        longest = len(stats.get("bwt_rows", []))   # the longest walk
         nbytes, int_ops, popc = self.traffic(fm, stats)
         del stats
         # rows in, values out, the boundary table and fchr read
@@ -965,8 +1008,11 @@ class Smoke:
         self.rows["resolve"].update(
             launches=launches2["resolve"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=None, rows=flat.numel(),
-            lf_steps=steps, unresolved=int((tidx < 0).sum()),
-            **self.bound(nbytes + io, int_ops, popc))
+            lf_steps=steps, longest_walk=longest,
+            unresolved=int((tidx < 0).sum()),
+            **self.bound(nbytes + io, int_ops, popc),
+            **self.launch_shape("resolve", fm.wide, flat.numel()),
+            ptxas=self.ptxas.get("resolve", []))
         # what full_sharded runs again over the mesh
         self.full_state = dict(idx=idx, batches=batches, rows=rows,
                                hits=[t.clone() for t in got], flat=flat,

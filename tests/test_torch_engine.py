@@ -124,14 +124,21 @@ def test_search_matches_jax(indexes, lanes, twin, wide, deep, min_hitlen):
     _assert_same_hits(got, want)
 
     # the plain version and the kernel's lane function on identical
-    # packed lanes, all 16 slots (a lane past 16 hits overwrites its last)
+    # packed lanes, all 16 slots (a lane past 16 hits overwrites its
+    # last), run by the one-thread group of 1 (K6's), 4 and 8 parts (the
+    # card's tile sizes): the same outputs and count of table reads
     rseqp, lengths = eng.pack_transport(lanes, 160, len(lanes))
     args = (fm, torch.from_numpy(rseqp), torch.from_numpy(lengths),
             torch.zeros(len(lanes), dtype=torch.int32), 16, min_hitlen,
             eng.increment, False, deep)
     plain = search_lanes(*args)
-    for p, t in zip(plain, twin_search(twin, *args)):
-        assert torch.equal(p, t)
+    assert int(plain[4].max()) > 16
+    most = []
+    for group in (1, 4, 8):
+        for p, t in zip(plain, twin_search(twin, *args, reads_out=most,
+                                           group=group)):
+            assert torch.equal(p, t)
+    assert most[0] == most[1] == most[2]
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
@@ -159,8 +166,10 @@ def test_first_hits_match_host_walk(indexes, lanes, twin, wide):
     rseqp, lengths = eng.pack_transport(lanes, 160, len(lanes))
     args = (fm, torch.from_numpy(rseqp), torch.from_numpy(lengths),
             torch.from_numpy(offs), 1, 22, eng.increment, True, True)
-    for p, t in zip(search_lanes(*args), twin_search(twin, *args)):
-        assert torch.equal(p, t)
+    want = search_lanes(*args)
+    for group in (1, 4, 8):
+        for p, t in zip(want, twin_search(twin, *args, group=group)):
+            assert torch.equal(p, t)
 
 
 def _sectors_brute(fm, st):

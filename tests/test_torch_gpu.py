@@ -64,13 +64,69 @@ def test_kernels_match_plain(cuda, port_index, wide):
     for r in read_batch([os.path.join(SYNTH, "reads_n.fq")]):
         seqs += [r.seq, r.revcomp()]
     eng = BatchSearchEngine(fm, 22)
-    rseqp, lengths = eng.pack_transport(seqs, 160, len(seqs))
-    args = (fm, torch.from_numpy(rseqp).to(cuda),
-            torch.from_numpy(lengths).to(cuda),
-            torch.zeros(len(seqs), dtype=torch.int32, device=cuda), 16, 22,
-            eng.increment, False, True)
-    for k, p in zip(search_lanes(*args), search_plain(*args)):
-        assert torch.equal(k, p)
+    # every lane, then ragged counts of lanes that leave the persistent
+    # grid's last block part empty (1 and 2 lanes: one block), at both
+    # min_hitlens, overflowing lanes (mh 4) and first hits from offsets
+    g = np.random.default_rng(3)
+    cases = [(len(seqs), 16, 22, False), (1, 16, 22, False),
+             (2, 1, 22, True), (127, 4, 16, False), (4097, 16, 16, False),
+             (4097, 1, 22, True)]
+    _cuda.reset_launches()
+    for L, mh, mhl, first in cases:
+        lanes = [seqs[i % len(seqs)] for i in range(L)]
+        rseqp, lengths = eng.pack_transport(lanes, 160, L)
+        start = g.integers(0, 90, L).astype(np.int32) if first \
+            else np.zeros(L, np.int32)
+        args = (fm, torch.from_numpy(rseqp).to(cuda),
+                torch.from_numpy(lengths).to(cuda),
+                torch.from_numpy(start).to(cuda), mh, mhl,
+                10 if 2 * mhl <= 33 else 2 * mhl - 33, first, True)
+        got = search_lanes(*args)
+        for k, p in zip(got, search_plain(*args)):
+            assert torch.equal(k, p)
+        if mh == 4:
+            assert int(got[4].max()) > mh   # lanes past mh hits
+        cfg = _cuda.persistent_config("search", wide, L)
+        assert cfg["tile"] > 1
+        assert cfg["grid"] == min(cfg["resident_blocks"], -(-L * cfg["tile"]
+                                                            // cfg["threads"]))
+    assert _cuda.LAUNCHES["search"] == len(cases)
+    assert _cuda.persistent_config("search", wide, 2)["grid"] == 1
+
+
+def test_misaligned_tables_raise(cuda, port_index):
+    """K1 and K3 read the block and ftab tables in 16-byte chunks: a
+    table that is a sliced view off that alignment raises before any
+    launch, and the kernel never reads it."""
+    import dataclasses
+
+    from centrifuge_tpu_torch import _cuda
+    from centrifuge_tpu_torch.classify.engine import search_lanes
+    from centrifuge_tpu_torch.ops.fm_torch import DeviceFMIndex, resolve_rows
+    fm = DeviceFMIndex.build(port_index, device=cuda, deep_ftab=True)
+
+    def shifted(t):   # the same rows, 4 bytes off the table's alignment
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    L = 8
+    args = (torch.zeros((L, 80), dtype=torch.uint8, device=cuda),
+            torch.full((L,), 100, dtype=torch.int32, device=cuda),
+            torch.zeros(L, dtype=torch.int32, device=cuda), 16, 22, 11,
+            False, True)
+    rows = torch.arange(8, dtype=torch.int32, device=cuda)
+    _cuda.reset_launches()
+    for name in ("blocks", "ftab_rows", "ftab12_rows"):
+        bad = dataclasses.replace(fm, **{name: shifted(getattr(fm, name))})
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            search_lanes(bad, *args)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        resolve_rows(dataclasses.replace(fm, blocks=shifted(fm.blocks)),
+                     rows)
+    assert _cuda.LAUNCHES["search"] == 0 and _cuda.LAUNCHES["resolve"] == 0
 
 
 def test_wrapper_refuses_mixed_devices(cuda, port_index):
@@ -112,7 +168,19 @@ def test_resolve_and_presolve_match_plain(cuda, port_index, wide):
         want = resolve_rows_plain(fm, rows, steps)
         assert torch.equal(resolve_rows(fm, rows, steps), want)
         assert bool((want < 0).any()) == (steps == 1)
-    assert _cuda.LAUNCHES["resolve"] == 2
+    # ragged row counts through the persistent grid and its counter: one
+    # row, a part-filled grid, and one row past a full 131,072
+    for n in (1, 1000, 131073):
+        more = torch.from_numpy(g.integers(0, port_index.bwt_len, n).astype(
+            np.int64 if wide else np.int32)).to(cuda)
+        for steps in (4096, 1):
+            assert torch.equal(resolve_rows(fm, more, steps),
+                               resolve_rows_plain(fm, more, steps))
+        cfg = _cuda.persistent_config("resolve", wide, n)
+        assert cfg["tile"] > 1
+        assert cfg["grid"] == min(cfg["resident_blocks"], -(-n * cfg["tile"]
+                                                            // cfg["threads"]))
+    assert _cuda.LAUNCHES["resolve"] == 8
     np.testing.assert_array_equal(make_resolver(fm)(rows_np),
                                   resolve_rows_plain(fm, rows).cpu().numpy())
 

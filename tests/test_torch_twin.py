@@ -22,12 +22,12 @@ CSRC = os.path.join(REPO, "centrifuge_tpu_torch", "csrc")
 
 _P, _I64, _I32 = C.c_void_p, C.c_int64, C.c_int32
 _SIGS = {
-    "rank": [_P, _P, _I64, _P, _P, _P, _I64],
+    "rank": [_P, _P, _I64, _P, _P, _P, _I64, _I32, _P, _P],
     "search": [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
-               _P, _I64, _I32, _I32, _I32, _I32, _I32],
+               _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32],
     "ftab12": [_P, _P, _I64, _P, _P, _P, _P, _P],
     "resolve": [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I32,
-                _P, _P, _I64],
+                _P, _P, _I64, _I32],
     "pick": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P],
     "shard_search": [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
                      _I32, _I32, _I32],
@@ -58,10 +58,10 @@ def build_twin(out_dir: str):
         for name, sig in _SIGS.items():
             fn = getattr(lib, f"twin_{name}_{kind}")
             fn.argtypes = sig
-            # the search and K6 twin loops return the longest lane's
-            # count of table reads
-            fn.restype = _I64 if name.startswith("shard") \
-                or name == "search" else None
+            # the search, walk and K6 twin loops return the longest
+            # lane's count of table reads, the rank 0; -1 for a group
+            # other than 1, 2, 4 or 8
+            fn.restype = None if name in ("ftab12", "pick") else _I64
     return lib
 
 
@@ -70,10 +70,12 @@ def ptr(t):
 
 
 def twin_search(lib, fm, reads, lengths, start, mh, min_hitlen, increment,
-                first_hit_only, deep, reads_out=None):
-    """The search kernel's lane function over all lanes, on the host;
-    same arguments and outputs as engine.search_lanes. reads_out, a
-    list, receives the longest lane's count of table reads."""
+                first_hit_only, deep, reads_out=None, group=1):
+    """The search kernel's lane function over all lanes, on the host,
+    run by the one-thread group of `group` parts (the card's tile
+    size); same arguments and outputs as engine.search_lanes.
+    reads_out, a list, receives the longest lane's count of table
+    reads."""
     L = reads.shape[0]
     idt = fm.row_dtype
     outs = [torch.empty((L, mh), dtype=idt), torch.empty((L, mh), dtype=idt),
@@ -87,21 +89,24 @@ def twin_search(lib, fm, reads, lengths, start, mh, min_hitlen, increment,
               ptr(fm.ftab12_rows) if deep else None, ptr(reads),
               reads.shape[1], ptr(lengths), ptr(start),
               *[ptr(o) for o in outs], L, mh, min_hitlen, increment,
-              int(first_hit_only), int(deep))
+              int(first_hit_only), int(deep), group)
+    assert most >= 0
     if reads_out is not None:
         reads_out.append(most)
     return outs
 
 
-def twin_resolve(lib, fm, rows, max_steps, walk=True):
+def twin_resolve(lib, fm, rows, max_steps, walk=True, group=1):
     """The K3 lane function (walk=True) or its exits alone over rows, on
-    the host; same outputs as ops/fm_torch.resolve_rows / try_offset_plain."""
+    the host, run by the one-thread group of `group` parts; same
+    outputs as ops/fm_torch.resolve_rows / try_offset_plain."""
     out = torch.empty(rows.shape, dtype=torch.int32)
     fn = lib.twin_resolve_wide if fm.wide else lib.twin_resolve_narrow
-    fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(fm.offs), fm.offs.numel(),
-       ptr(fm.boundary_rows), ptr(fm.boundary_refs),
-       fm.boundary_rows.numel(), fm.offrate, int(fm.npat <= 0xFFFF),
-       max_steps, int(walk), ptr(rows), ptr(out), rows.numel())
+    most = fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(fm.offs),
+              fm.offs.numel(), ptr(fm.boundary_rows), ptr(fm.boundary_refs),
+              fm.boundary_rows.numel(), fm.offrate, int(fm.npat <= 0xFFFF),
+              max_steps, int(walk), ptr(rows), ptr(out), rows.numel(), group)
+    assert most >= 0
     return out
 
 
@@ -175,14 +180,76 @@ def test_twin_rank_matches_plain(twin, port_index, wide):
     fn = twin.twin_rank_wide if wide else twin.twin_rank_narrow
     for use_fchr in (False, True):
         got = torch.empty_like(rows)
-        fn(ptr(fm.blocks), ptr(fm.fchr) if use_fchr else None, fm.zoff,
-           ptr(rows), ptr(chars), ptr(got), rows.shape[0])
+        assert fn(ptr(fm.blocks), ptr(fm.fchr) if use_fchr else None,
+                  fm.zoff, ptr(rows), ptr(chars), ptr(got), rows.shape[0], 0,
+                  None, None) == 0
         want = rank_plain(fm.blocks, fm.zoff, rows, chars)
         if use_fchr:
             want = fm.fchr.to(torch.int64)[chars.to(torch.int64)] + want
             assert torch.equal(lf(fm.blocks, fm.fchr, fm.zoff, rows, chars),
                                want.to(rows.dtype))
         assert torch.equal(got, want.to(rows.dtype))
+
+
+# the one-thread group at the card's tile sizes (and K6's G = 1); the
+# G = 1 cases keep the ids the tests had before the tile groups
+GROUP_CASES = [(False, 1), (True, 1), (False, 4), (True, 4), (False, 8),
+               (True, 8)]
+GROUP_IDS = ["narrow", "wide", "narrow_g4", "wide_g4", "narrow_g8",
+             "wide_g8"]
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_twin_row_scan_matches_plain(twin, port_index, wide, group):
+    """The row scan of K1, K3 and K6 (fm_common.cuh scan_rank and
+    rank_pair) with its G chunk parts summed as a tile sums them: at
+    every `within` 0..511 of the block holding the '$' row and of the
+    first block, and up to the BWT's length in the last, for every char, the rank equals the plain
+    rank and the code the plain BWT, and the pair scan gives both ranks,
+    over two rows of one block (read once) and of two blocks; and the
+    rank of the code at the row itself (char -1, K3's step)."""
+    from centrifuge_tpu_torch.ops.fm_torch import DeviceFMIndex
+    from centrifuge_tpu_torch.ops.rank import bwt_at_plain, rank_plain
+    fm = DeviceFMIndex.build(port_index, device="cpu", wide=wide,
+                             deep_ftab=False)
+    n = port_index.bwt_len
+    base = np.concatenate([(fm.zoff >> 9 << 9) + np.arange(512),
+                           np.arange(512),
+                           (n >> 9 << 9) + np.arange((n & 511) + 1)])
+    assert fm.zoff in base and base.shape[0] % 2 == 0
+    rows_np = np.repeat(base, 4)
+    chars_np = np.tile(np.arange(4), base.shape[0])
+    # pairs (2m, 2m + 1): the same row with chars 2m, 2m+1 and, shuffled,
+    # rows of two blocks
+    rng = np.random.default_rng(12)
+    perm = rng.permutation(base.shape[0])
+    rows_np = np.concatenate([rows_np, base[perm]])
+    chars_np = np.concatenate([chars_np, rng.integers(0, 4, base.shape[0])])
+    rows = torch.from_numpy(rows_np.astype(np.int64 if wide else np.int32))
+    chars = torch.from_numpy(chars_np.astype(np.int32))
+    got = torch.empty_like(rows)
+    pair = torch.empty_like(rows)
+    codes = torch.empty(rows.shape, dtype=torch.int32)
+    fn = twin.twin_rank_wide if wide else twin.twin_rank_narrow
+    assert fn(ptr(fm.blocks), None, fm.zoff, ptr(rows), ptr(chars), ptr(got),
+              rows.numel(), group, ptr(codes), ptr(pair)) == 0
+    assert torch.equal(got, rank_plain(fm.blocks, fm.zoff, rows, chars
+                                       ).to(rows.dtype))
+    assert torch.equal(codes.to(torch.int64), bwt_at_plain(fm.blocks, rows))
+    pair_chars = chars.view(-1, 2)[:, :1].expand(-1, 2).reshape(-1)
+    assert torch.equal(pair, rank_plain(fm.blocks, fm.zoff, rows, pair_chars
+                                        ).to(rows.dtype))
+    assert int(codes[rows_np == fm.zoff][0]) == 0
+    # char -1: the rank of the code at each row, as K3's walk asks it
+    # (every code counted, the one at the row picked after)
+    any_c = torch.full_like(chars, -1)
+    assert fn(ptr(fm.blocks), None, fm.zoff, ptr(rows), ptr(any_c), ptr(got),
+              rows.numel(), group, ptr(codes), ptr(pair)) == 0
+    at = bwt_at_plain(fm.blocks, rows)
+    assert torch.equal(codes.to(torch.int64), at)
+    assert torch.equal(got, rank_plain(fm.blocks, fm.zoff, rows,
+                                       at.to(torch.int32)).to(rows.dtype))
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
@@ -206,12 +273,13 @@ def test_twin_ftab12_matches_plain(twin, port_index, wide):
     assert torch.equal(out, fm.ftab12_rows)
 
 
-@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
-def test_twin_resolve_matches_plain(twin, port_index, wide):
+@pytest.mark.parametrize("wide,group", GROUP_CASES, ids=GROUP_IDS)
+def test_twin_resolve_matches_plain(twin, port_index, wide, group):
     """resolve_row and try_offset against the plain walk and exits, on
-    the edge rows and every boundary row, at the full step budget and at
-    max_steps=2 (8 LF steps: the bound rounds up to the 8-step unroll),
-    which leaves rows unresolved."""
+    the edge rows and every boundary row, run by the one-thread group of
+    `group` parts: at the full step budget and at max_steps 1, 2 (8 LF
+    steps: the bound rounds up to the 8-step unroll) and 9 (16), the
+    first two of which leave rows unresolved."""
     from centrifuge_tpu_torch.ops.fm_torch import (DeviceFMIndex,
                                                    resolve_rows_plain,
                                                    try_offset_plain)
@@ -222,13 +290,15 @@ def test_twin_resolve_matches_plain(twin, port_index, wide):
                               fm.boundary_rows.numpy()])
     rows = torch.from_numpy(rows_np[rows_np < port_index.bwt_len].astype(
         np.int64 if wide else np.int32))
-    got = twin_resolve(twin, fm, rows, 0, walk=False)
+    got = twin_resolve(twin, fm, rows, 0, walk=False, group=group)
     assert torch.equal(got, try_offset_plain(fm, rows))
     assert (got >= 0).any() and (got < 0).any()
-    for steps in (4096, 2):
+    for steps in (4096, 1, 2, 9):
         want = resolve_rows_plain(fm, rows, max_steps=steps)
-        assert torch.equal(twin_resolve(twin, fm, rows, steps), want)
-        assert bool((want < 0).any()) == (steps == 2)
+        assert torch.equal(twin_resolve(twin, fm, rows, steps, group=group),
+                           want)
+        if steps != 9:
+            assert bool((want < 0).any()) == (steps < 9)
 
 
 @pytest.mark.parametrize("khits", [5, 16])

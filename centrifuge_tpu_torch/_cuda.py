@@ -29,12 +29,12 @@ _P, _I64, _I32 = C.c_void_p, C.c_int64, C.c_int32
 _RANK = [_P, _P, _I64, _P, _P, _P, _I64, _P]
 _SEARCH = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
            _I64, _I32, _I32, _I32, _I32, _I32, _P, _P]
-_FTAB12 = [_P, _P, _I64, _P, _P, _P, _P, _P, _P]
+_FTAB12 = [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P]
 _RESOLVE = [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _P,
             _I64, _P, _P]
 _CONFIG = [_I32, _I64, _P]
-_PRESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
-             _I64, _P]
+_PRESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _I64, _P,
+             _P]
 _SH_SEARCH = [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
               _I32, _I32, _P]
 _SH_RESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _I64, _P]
@@ -42,7 +42,8 @@ SIGNATURES = {
     "rank": {"fm_rank_narrow": _RANK, "fm_rank_wide": _RANK},
     "search": {"fm_search_narrow": _SEARCH, "fm_search_wide": _SEARCH,
                "fm_search_config": _CONFIG},
-    "ftab12": {"fm_ftab12_narrow": _FTAB12, "fm_ftab12_wide": _FTAB12},
+    "ftab12": {"fm_ftab12_narrow": _FTAB12, "fm_ftab12_wide": _FTAB12,
+               "fm_ftab12_config": _CONFIG},
     "resolve": {"fm_resolve_narrow": _RESOLVE, "fm_resolve_wide": _RESOLVE,
                 "fm_resolve_config": _CONFIG},
     "presolve": {"fm_presolve_narrow": _PRESOLVE,
@@ -143,15 +144,16 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# K1 and K3 (csrc/search.cu, csrc/resolve.cu) take their lanes or rows
-# from an int32 work counter
+# K1, K3 and K4 (csrc/search.cu, csrc/resolve.cu, csrc/ftab12.cu) take
+# their lanes, rows or level-1 ranges from an int32 work counter
 MAX_ITEMS = 1 << 30
 CONFIG_KEYS = ("tile", "threads", "grid", "registers", "resident_blocks")
 
 
 def persistent_config(kernel: str, wide: bool, n: int) -> dict:
-    """The launch shape of K1 ("search") or K3 ("resolve") for n lanes or
-    rows on the current card: threads per lane or row (the tile),
+    """The launch shape of K1 ("search"), K3 ("resolve") or K4
+    ("ftab12", whose n is fixed: the 2^22 level-1 ranges) for n lanes,
+    rows or ranges on the current card: threads per item (the tile),
     threads per block, the grid, registers per thread (ptxas's count)
     and the resident grid it is capped at."""
     out = (C.c_int32 * len(CONFIG_KEYS))()

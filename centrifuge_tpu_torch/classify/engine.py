@@ -39,6 +39,8 @@ from ..ops.rank import bwt_at_plain, rank_plain, word_counts
 
 FTAB_CHARS = 10
 PRESOLVE_ROWS_PER_MATE = 4   # flat presolve slots per mate
+PRESOLVE_MATES_PER_BLOCK = 32  # csrc/fm_common.cuh kPickMates
+PRESOLVE_MAX_RK = 128          # kPickMaxRk: presolve_rk's largest
 
 
 def _bucket(n: int, lo: int = 256) -> int:
@@ -408,8 +410,9 @@ def presolve_rows(h_top: torch.Tensor, h_bot: torch.Tensor,
                   min_hitlen: int, rk: int) -> torch.Tensor:
     """K5 over a batch's first-pass hit buffers [L, mh] (L even) -> the
     flat presolve rows [PRESOLVE_ROWS_PER_MATE * L / 2] in the row dtype:
-    the CUDA kernels for CUDA tensors (csrc/presolve.cu: pick, scan,
-    compaction on one stream), the plain version for CPU tensors."""
+    one CUDA kernel launch for CUDA tensors (csrc/presolve.cu: a warp a
+    mate, its rows scattered straight to their flat slots), the plain
+    version for CPU tensors."""
     args = (khits, ihits, min_hitlen, rk)
     if not h_top.is_cuda:
         return presolve_rows_plain(h_top, h_bot, h_len, *args)
@@ -420,21 +423,27 @@ def presolve_rows(h_top: torch.Tensor, h_bot: torch.Tensor,
             or h_bot.shape != (L, mh) or h_len.shape != (L, mh):
         raise ValueError("hit buffers must be [L, mh] with L even: h_top "
                          "and h_bot in the row dtype, h_len int32")
+    if not 1 <= rk <= PRESOLVE_MAX_RK:
+        raise ValueError(f"rk={rk}: the presolve stages 1 to "
+                         f"{PRESOLVE_MAX_RK} rows a mate")
     M = L // 2
+    if M >= _cuda.MAX_ITEMS:
+        raise ValueError(f"{M} mates: the presolve takes fewer than "
+                         f"{_cuda.MAX_ITEMS} a call")
     dev = h_top.device
     idt = h_top.dtype
-    rows = torch.empty((M, rk), dtype=idt, device=dev)
-    nrows = torch.empty(M, dtype=torch.int32, device=dev)
-    doffs = torch.empty(M, dtype=torch.int32, device=dev)
     flat = torch.empty(PRESOLVE_ROWS_PER_MATE * M, dtype=idt, device=dev)
     if M == 0:
         return flat
+    # the blocks' ticket counter and look-back flags, zeroed
+    state = torch.zeros(1 + -(-M // PRESOLVE_MATES_PER_BLOCK),
+                        dtype=torch.int64, device=dev)
     lib = _cuda.lib("presolve")
     fn = lib.fm_presolve_wide if idt == torch.int64 \
         else lib.fm_presolve_narrow
     rc = fn(h_top.data_ptr(), h_bot.data_ptr(), h_len.data_ptr(), M, mh,
-            *args, rows.data_ptr(), nrows.data_ptr(), doffs.data_ptr(),
-            flat.data_ptr(), flat.numel(), _cuda.stream_ptr(dev))
+            *args, flat.data_ptr(), flat.numel(), state.data_ptr(),
+            _cuda.stream_ptr(dev))
     _cuda.check(rc, "presolve kernel")
     _cuda.LAUNCHES["presolve"] += 1
     return flat
@@ -508,12 +517,21 @@ class BatchSearchEngine:
         self.overflow_bucket_lo = 32   # lane bucket of the overflow re-run
         self.stats = {"upload_bytes": 0, "download_bytes": 0,
                       "ext_searches": 0, "ext_lanes": 0}
+        # the main thread and the tail worker both add to the counters
+        self._stats_lock = threading.Lock()
         # every launch on the engine's stream holds this lock: the main
         # thread's searches, and (without a host resolver) the tail
         # worker's first-hit searches and device resolves
         self.dev_lock = threading.RLock()
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
+
+    def add_stats(self, **deltas: int) -> None:
+        """Add to the --met counters in `stats`, under their own lock: the
+        main thread and the tail worker both count, outside dev_lock."""
+        with self._stats_lock:
+            for k, v in deltas.items():
+                self.stats[k] += v
 
     # ---- lane packing ----
 
@@ -573,8 +591,8 @@ class BatchSearchEngine:
         fm = self.fm
         args = (handle.mh, self.min_hitlen, self.increment, first_hit_only,
                 self._deep(handle.lmax))
-        self.stats["upload_bytes"] += (handle.rseqp.nbytes
-                                       + handle.lengths.nbytes)
+        self.add_stats(upload_bytes=handle.rseqp.nbytes
+                       + handle.lengths.nbytes)
 
         def presolve(out):
             # from the first-pass buffers, as the JAX dispatch does: a
@@ -615,7 +633,7 @@ class BatchSearchEngine:
             handle.event.synchronize()
             handle.device_out = None
         out = [t.numpy() for t in handle.host_out]
-        self.stats["download_bytes"] += sum(a.nbytes for a in out)
+        self.add_stats(download_bytes=sum(a.nbytes for a in out))
         return out
 
     def _run(self, rseqp, lengths, start, max_hits, first_hit_only,
@@ -713,8 +731,7 @@ class BatchSearchEngine:
         L = len(seqs)
         lmax = _bucket_len(max((len(s) for s in seqs), default=1), lo=32)
         chunk = self.FIRST_HITS_CHUNK
-        self.stats["ext_searches"] += (L + chunk - 1) // chunk
-        self.stats["ext_lanes"] += L
+        self.add_stats(ext_searches=(L + chunk - 1) // chunk, ext_lanes=L)
         outs = []
         for c0 in range(0, L, chunk):
             part = seqs[c0: c0 + chunk]

@@ -4,14 +4,17 @@
 // on a machine without a CUDA compiler. The port itself never loads it:
 // on the CPU its wrappers run the plain versions.
 //
-// The search, the walk and the row scan run under fm::Serial<G>, the
-// one-thread group that computes the G parts of every row scan in a loop
-// and sums them: the part functions that a tile of G threads runs on the
-// card (K1, K3), and at G = 1 K6's group. `group` selects G (1, 2, 4 or
-// 8); an entry returns -1 for any other.
+// The search, the walk, the row scan and the depth-12 ftab run under
+// fm::Serial<G>, the one-thread group that computes the G parts of every
+// row scan in a loop and sums them: the part functions that a tile of G
+// threads runs on the card (K1, K3, K4), and at G = 1 K6's group.
+// `group` selects G (1, 2, 4 or 8); an entry returns -1 for any other.
+// The presolve runs its warp's 32 lanes as fm::Serial<32>.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC cpu_twin.cpp -o cpu_twin.so
 #include <stdint.h>
+
+#include <vector>
 
 #include "fm_common.cuh"
 
@@ -160,14 +163,30 @@ int64_t search_all(const void* blocks, const void* fchr, int64_t zoff,
                     [&](auto g) { return search_lanes<R>(t, a, L, g); });
 }
 
+// K4's 2^22 level-1 ranges (fm_common.cuh level1_range, ftab12_range),
+// run by the group of `group` parts.
 template <typename R>
-void ftab12_all(const void* blocks, const void* fchr, int64_t zoff,
-                const void* t0, const void* b0, const void* t1,
-                const void* b1, void* out) {
-  for (int64_t idx = 0; idx < ((int64_t)1 << 24); ++idx)
-    fm::ftab12_entry<R>((const uint32_t*)blocks, (const R*)fchr, (R)zoff,
-                        (const R*)t0, (const R*)b0, (const R*)t1,
-                        (const R*)b1, (uint32_t*)out, idx);
+int64_t ftab12_all(const void* blocks, const void* fchr, int64_t zoff,
+                   const void* t0, const void* b0, const void* t1,
+                   const void* b1, void* out, int32_t group) {
+  fm::Ftab12Args<R> a;
+  a.blocks = (const uint32_t*)blocks;
+  a.zoff = (R)zoff;
+  a.t0 = (const R*)t0;
+  a.b0 = (const R*)b0;
+  a.t1 = (const R*)t1;
+  a.b1 = (const R*)b1;
+  a.out = (uint32_t*)out;
+  const R* f = (const R*)fchr;
+  const fm::Fc4<R> fc{{f[0], f[1], f[2], f[3]}};
+  return with_group(group, [&](auto g) -> int64_t {
+    for (int64_t i1 = 0; i1 < fm::kN1; ++i1) {
+      R lt, lb;
+      fm::level1_range<R>(a, i1, &lt, &lb);
+      fm::ftab12_range<R>(a, fc, g, i1, lt, lb);
+    }
+    return 0;
+  });
 }
 
 // the longest walk's rounds of table reads
@@ -190,10 +209,21 @@ int64_t resolve_all(const void* blocks, const void* fchr, int64_t zoff,
   });
 }
 
+// K5 as its kernel runs it, with the warp emulated by fm::Serial<32>:
+// each mate's rows laid into its rk staging slots and counted; per
+// block of fm::kPickMates mates the exclusive scan of the counts, and
+// the block's offset from the blocks before it; then each mate's rows
+// copied to flat[offset ..] (slots past n dropped) and the slots from
+// the grand total to n set to 0. The kernel's warps and blocks write in
+// no fixed order, so here the mates are staged from the last to the
+// first, and the tail is filled before the rows are copied, last mate
+// first: a slot that two writes share shows. nrows, where given,
+// receives each mate's count.
 template <typename R>
-void pick_all(const void* h_top, const void* h_bot, const void* h_len,
-              int64_t M, int32_t mh, int32_t khits, int32_t ihits,
-              int32_t min_hitlen, int32_t rk, void* rows, void* nrows) {
+void presolve_all(const void* h_top, const void* h_bot, const void* h_len,
+                  int64_t M, int32_t mh, int32_t khits, int32_t ihits,
+                  int32_t min_hitlen, int32_t rk, void* flat, int64_t n,
+                  void* nrows) {
   fm::PickArgs<R> a;
   a.h_top = (const R*)h_top;
   a.h_bot = (const R*)h_bot;
@@ -203,9 +233,29 @@ void pick_all(const void* h_top, const void* h_bot, const void* h_len,
   a.ihits = ihits;
   a.min_hitlen = min_hitlen;
   a.rk = rk;
-  a.rows = (R*)rows;
-  a.nrows = (int32_t*)nrows;
-  for (int64_t m = 0; m < M; ++m) fm::pick_mate<R>(a, m);
+  a.flat = (R*)flat;
+  a.n = n;
+  const fm::Serial<32> w;
+  // each mate's rk slots, then slack for the most rows a mate's hits
+  // could lay unclipped (2 mh hits of ihits rows)
+  std::vector<R> stage(M * rk + 2 * (int64_t)mh * (ihits > 0 ? ihits : 0));
+  std::vector<int32_t> cnt(M);
+  std::vector<int64_t> doff(M);
+  for (int64_t m = M - 1; m >= 0; --m)
+    cnt[m] = fm::mate_rows<R>(a, w, m, stage.data() + m * rk);
+  int64_t base = 0;
+  for (int64_t m0 = 0; m0 < M; m0 += fm::kPickMates) {
+    int32_t agg = 0;  // the block's scan
+    for (int j = 0; j < fm::kPickMates && m0 + j < M; ++j) {
+      doff[m0 + j] = base + agg;
+      agg += cnt[m0 + j];
+      if (nrows != nullptr) ((int32_t*)nrows)[m0 + j] = cnt[m0 + j];
+    }
+    base += agg;
+  }
+  fm::fill_tail<R>(a.flat, base, n, 0, 1);
+  for (int64_t m = M - 1; m >= 0; --m)
+    fm::lay_rows<R>(stage.data() + m * rk, cnt[m], doff[m], a.flat, n, 0, 1);
 }
 
 // K6's lane loops over a dp row's shards, from the descriptor words that
@@ -265,10 +315,11 @@ int64_t shard_resolve_all(const int64_t* desc, const void* brows,
                          h_len, nhits, sums, L, mh, min_hitlen, increment, \
                          first_hit_only, deep, group);                     \
   }                                                                        \
-  extern "C" void twin_ftab12_##KIND(                                      \
+  extern "C" int64_t twin_ftab12_##KIND(                                   \
       const void* blocks, const void* fchr, int64_t zoff, const void* t0,  \
-      const void* b0, const void* t1, const void* b1, void* out) {         \
-    ftab12_all<R>(blocks, fchr, zoff, t0, b0, t1, b1, out);                \
+      const void* b0, const void* t1, const void* b1, void* out,           \
+      int32_t group) {                                                     \
+    return ftab12_all<R>(blocks, fchr, zoff, t0, b0, t1, b1, out, group); \
   }                                                                        \
   /* walk = 0: try_offset only; walk = 1: resolve_row */                   \
   extern "C" int64_t twin_resolve_##KIND(                                  \
@@ -280,12 +331,12 @@ int64_t shard_resolve_all(const int64_t* desc, const void* brows,
                           nb, offrate, narrow, max_steps, walk, rows, tidx, \
                           n, group);                                       \
   }                                                                        \
-  extern "C" void twin_pick_##KIND(                                        \
+  extern "C" void twin_presolve_##KIND(                                    \
       const void* h_top, const void* h_bot, const void* h_len, int64_t M,  \
       int32_t mh, int32_t khits, int32_t ihits, int32_t min_hitlen,        \
-      int32_t rk, void* rows, void* nrows) {                               \
-    pick_all<R>(h_top, h_bot, h_len, M, mh, khits, ihits, min_hitlen, rk,  \
-                rows, nrows);                                              \
+      int32_t rk, void* flat, int64_t n, void* nrows) {                    \
+    presolve_all<R>(h_top, h_bot, h_len, M, mh, khits, ihits, min_hitlen, \
+                    rk, flat, n, nrows);                                   \
   }                                                                        \
   extern "C" int64_t twin_shard_search_##KIND(                             \
       const int64_t* desc, const void* reads, int64_t row_bytes,           \

@@ -13,8 +13,11 @@
 // The group is the threads that run one lane: Tile<G>, G threads of a
 // warp that split each block-row scan into 16-byte chunks (K1, K3), or
 // Serial<G>, one thread computing the same G parts in a loop (K6 at
-// G = 1, and the host twin at every G). Tables are read through the
-// read-only path (ldg).
+// G = 1, and the host twin at every G). K4 scans a level-1 range
+// (ftab12_range) under the same groups, and K5 picks a mate's rows
+// (mate_rows) under a group of 32 lanes: Tile<32>, a warp, on the card,
+// Serial<32> in the twin. Tables are read through the read-only path
+// (ldg).
 //
 // Block layout (ops/fm_torch.pack_bwt_blocks): uint32 rows of 512 bases,
 //   narrow (R = int32_t): occ[4]              | words[32]   (36 words)
@@ -135,6 +138,15 @@ FM_HD int popc64(uint64_t x) {
 #endif
 }
 
+// the index of the lowest set bit (x != 0)
+FM_HD int ctz32(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
 // Bases equal to c among the first nvalid (0..16) bases of a word. The
 // word XOR the char's repeated pattern turns matching bases into 00; the
 // AND of the complement's two bit planes leaves one marker bit per base.
@@ -197,46 +209,32 @@ FM_HD void ftab_entry(const uint32_t* rows, int64_t fi, R* top, R* bot) {
   }
 }
 
+// An entry's (top, bot) in one 8-byte (narrow) or 16-byte (wide) store
+// on the card. Rows are 144 and 160 bytes, so with the table 16-byte
+// aligned every entry is aligned to its size.
 template <typename R>
 FM_HD void ftab_store(uint32_t* rows, int64_t fi, R top, R bot) {
   uint32_t* row = rows + (fi >> Geo<R>::kPerShift) * Geo<R>::kWidth;
   if constexpr (sizeof(R) == 8) {
-    const int q = (int)(fi & 7) * 4;
-    row[q] = (uint32_t)((uint64_t)top & 0xFFFFFFFFu);
-    row[q + 1] = (uint32_t)((uint64_t)top >> 32);
-    row[q + 2] = (uint32_t)((uint64_t)bot & 0xFFFFFFFFu);
-    row[q + 3] = (uint32_t)((uint64_t)bot >> 32);
+    uint32_t* q = row + (int)(fi & 7) * 4;
+    const uint32_t v[4] = {(uint32_t)((uint64_t)top & 0xFFFFFFFFu),
+                           (uint32_t)((uint64_t)top >> 32),
+                           (uint32_t)((uint64_t)bot & 0xFFFFFFFFu),
+                           (uint32_t)((uint64_t)bot >> 32)};
+#if defined(__CUDA_ARCH__)
+    *reinterpret_cast<uint4*>(q) = make_uint4(v[0], v[1], v[2], v[3]);
+#else
+    for (int k = 0; k < 4; ++k) q[k] = v[k];
+#endif
   } else {
-    const int p = (int)(fi & 15) * 2;
-    row[p] = (uint32_t)top;
-    row[p + 1] = (uint32_t)bot;
+    uint32_t* q = row + (int)(fi & 15) * 2;
+#if defined(__CUDA_ARCH__)
+    *reinterpret_cast<uint2*>(q) = make_uint2((uint32_t)top, (uint32_t)bot);
+#else
+    q[0] = (uint32_t)top;
+    q[1] = (uint32_t)bot;
+#endif
   }
-}
-
-// One depth-12 ftab entry, idx = e10 | c10 << 20 | c11 << 22 (the
-// window layout of the search: the char at cur+j sits at bits 2j). t1/b1
-// hold LF(t0, c10) / LF(b0, c10) at e10 | c10 << 20. Guards as
-// native/fmwalk.cpp fm_ftab_extend: an empty depth-10 parent gives an
-// empty (0, 0) level-1 range, and level 2 extends only a non-empty
-// level-1 range; every other entry stores (0, 0).
-template <typename R>
-FM_HD void ftab12_entry(const uint32_t* blocks, const R* fchr, R zoff,
-                        const R* t0, const R* b0, const R* t1, const R* b1,
-                        uint32_t* out, int64_t idx) {
-  const int64_t e10 = idx & ((1 << 20) - 1);
-  const int64_t i1 = idx & ((1 << 22) - 1);
-  const int c11 = (int)((idx >> 22) & 3);
-  R lt = 0, lb = 0;
-  if (b0[e10] > t0[e10]) {
-    lt = t1[i1];
-    lb = b1[i1];
-  }
-  R top = 0, bot = 0;
-  if (lb > lt) {
-    top = lf<R>(blocks, fchr, zoff, lt, c11);
-    bot = lf<R>(blocks, fchr, zoff, lb, c11);
-  }
-  ftab_store<R>(out, idx, top, bot);
 }
 
 // ---- the table readers ----
@@ -377,14 +375,51 @@ inline bool shard_set(const int64_t* d, ShardSet<R>* s) {
 // leader() writes a lane's results; rank() and size() spread its slot
 // initialisation; sync() orders the two.
 
+// K5 runs one mate on a warp, lane p holding its entries p, p + 32, ...:
+// the per-lane steps are functions of the lane p, and the group gives
+// the collectives over them. vals(f) is each lane's f(p) (own(p), the
+// lane's own; at(k), lane k's, a shuffle on the card); sum, max and
+// ballot reduce f over the lanes; each(f) runs f for the thread's lanes.
+template <typename T, int G>
+struct SerialVals {
+  T v[G];
+  FM_HDM T own(int p) const { return v[p]; }
+  FM_HDM T at(int k) const { return v[k]; }
+};
+
 template <int G>
 struct Serial {
   static constexpr int kG = G;
   template <typename Part>
-  FM_HDM uint32_t sum(const Part& part) const {
-    uint32_t s = 0;
+  FM_HDM auto sum(const Part& part) const -> decltype(part(0)) {
+    decltype(part(0)) s = 0;
     for (int p = 0; p < G; ++p) s += part(p);
     return s;
+  }
+  template <typename F>
+  FM_HDM auto max(const F& f) const -> decltype(f(0)) {
+    decltype(f(0)) m = f(0);
+    for (int p = 1; p < G; ++p) {
+      const auto v = f(p);
+      if (v > m) m = v;
+    }
+    return m;
+  }
+  template <typename F>
+  FM_HDM uint32_t ballot(const F& f) const {
+    uint32_t b = 0;
+    for (int p = 0; p < G; ++p) b |= (f(p) ? 1u : 0u) << p;
+    return b;
+  }
+  template <typename F>
+  FM_HDM auto vals(const F& f) const -> SerialVals<decltype(f(0)), G> {
+    SerialVals<decltype(f(0)), G> v;
+    for (int p = 0; p < G; ++p) v.v[p] = f(p);
+    return v;
+  }
+  template <typename F>
+  FM_HDM void each(const F& f) const {
+    for (int p = 0; p < G; ++p) f(p);
   }
   FM_HDM bool leader() const { return true; }
   FM_HDM int rank() const { return 0; }
@@ -397,18 +432,58 @@ namespace cg = cooperative_groups;
 
 // The members run on the card only; the host pass of nvcc sees bodies
 // that it never calls.
+template <typename T, int G>
+struct TileVals {
+  T mine;
+  const cg::thread_block_tile<G>* tile;
+  FM_HDM T own(int) const { return mine; }
+  FM_HDM T at(int k) const {
+#if defined(__CUDA_ARCH__)
+    return tile->shfl(mine, k);
+#else
+    (void)k;
+    return mine;
+#endif
+  }
+};
+
 template <int G>
 struct Tile {
   static constexpr int kG = G;
   cg::thread_block_tile<G> tile;
   template <typename Part>
-  FM_HDM uint32_t sum(const Part& part) const {
+  FM_HDM auto sum(const Part& part) const -> decltype(part(0)) {
+    using T = decltype(part(0));
 #if defined(__CUDA_ARCH__)
-    return cg::reduce(tile, part((int)tile.thread_rank()),
-                      cg::plus<uint32_t>());
+    return cg::reduce(tile, part((int)tile.thread_rank()), cg::plus<T>());
 #else
     return part(0);
 #endif
+  }
+  template <typename F>
+  FM_HDM auto max(const F& f) const -> decltype(f(0)) {
+    using T = decltype(f(0));
+#if defined(__CUDA_ARCH__)
+    return cg::reduce(tile, f((int)tile.thread_rank()), cg::greater<T>());
+#else
+    return f(0);
+#endif
+  }
+  template <typename F>
+  FM_HDM uint32_t ballot(const F& f) const {
+#if defined(__CUDA_ARCH__)
+    return tile.ballot(f((int)tile.thread_rank()));
+#else
+    return f(0) ? 1u : 0u;
+#endif
+  }
+  template <typename F>
+  FM_HDM auto vals(const F& f) const -> TileVals<decltype(f(0)), G> {
+    return TileVals<decltype(f(0)), G>{f(rank()), &tile};
+  }
+  template <typename F>
+  FM_HDM void each(const F& f) const {
+    f(rank());
   }
   FM_HDM bool leader() const { return rank() == 0; }
   FM_HDM int rank() const {
@@ -683,6 +758,108 @@ struct Fc4 {
 template <typename R, typename T>
 FM_HD Fc4<R> load_fc(const T& t) {
   return Fc4<R>{{t.fc(0), t.fc(1), t.fc(2), t.fc(3)}};
+}
+
+// ---- the depth-12 ftab (K4): one level-1 range a group ----
+
+// Part p (of G) of the all-code scans of two rows: the bit planes before
+// `wa` in row a (bits 0-26, as ScanPart<G, true> counts them) and before
+// `wb` in row b (bits 32-58). Both rows' loads are issued before either
+// is counted, and a row that both ends share is read once, as in
+// PairPart. A chunk wholly past its end is not read and counts nothing.
+template <int G>
+struct PairAllPart {
+  const uint32_t* a;
+  const uint32_t* b;
+  int wa, wb;
+  FM_HDM uint64_t operator()(int p) const {
+    constexpr int K = kChunks / G;
+    const bool same = a == b;
+    U4 qa[K]{}, qb[K]{};
+    FM_UNROLL
+    for (int i = 0; i < K; ++i) {
+      const int k = i * G + p;
+      const bool la = 64 * k < wa, lb = 64 * k < wb;
+      if (same) {
+        if (la || lb) qa[i] = qb[i] = ldg4(a + 4 * k);
+      } else {
+        if (la) qa[i] = ldg4(a + 4 * k);
+        if (lb) qb[i] = ldg4(b + 4 * k);
+      }
+    }
+    uint64_t s = 0;
+    FM_UNROLL
+    for (int i = 0; i < K; ++i) {
+      const int k = i * G + p;
+      s += (uint64_t)planes_before(qa[i], k, wa) +
+           ((uint64_t)planes_before(qb[i], k, wb) << 32);
+    }
+    return s;
+  }
+};
+
+// The 2^22 level-1 ranges: i1 = e10 | c10 << 20, t1/b1[i1] = LF(t0[e10],
+// c10) / LF(b0[e10], c10) from K0; the depth-12 entries of i1 are
+// idx = i1 | c11 << 22 (the window layout of the search: the char at
+// cur + j sits at bits 2j).
+constexpr int64_t kN10 = (int64_t)1 << 20;
+constexpr int64_t kN1 = (int64_t)1 << 22;
+
+template <typename R>
+struct Ftab12Args {
+  const uint32_t* blocks;
+  R zoff;
+  const R* t0;  // [2^20] the depth-10 ranges
+  const R* b0;
+  const R* t1;  // [2^22] their level-1 extensions
+  const R* b1;
+  uint32_t* out;  // packed depth-12 rows
+};
+
+// Level-1 range i1 under the guard of native/fmwalk.cpp fm_ftab_extend:
+// an empty depth-10 parent gives the empty range (0, 0). The four loads
+// do not wait on each other.
+template <typename R>
+FM_HD void level1_range(const Ftab12Args<R>& a, int64_t i1, R* lt, R* lb) {
+  const int64_t e10 = i1 & (kN10 - 1);
+  const R t0 = ldg(a.t0 + e10), b0 = ldg(a.b0 + e10);
+  const R t1 = ldg(a.t1 + i1), b1 = ldg(a.b1 + i1);
+  const bool parent = b0 > t0;
+  *lt = parent ? t1 : (R)0;
+  *lb = parent ? b1 : (R)0;
+}
+
+// The four depth-12 entries that extend level-1 range i1, (lt, lb) as
+// level1_range gives it, by the group g. Only a non-empty range extends;
+// every other entry stores (0, 0). A non-empty range reads the block
+// rows of its two ends once, all four codes counted in one scan (the
+// '$' correction once per end), and forms LF of both ends for every
+// c11; the group's threads split the four stores.
+template <typename R, typename Grp>
+FM_HD void ftab12_range(const Ftab12Args<R>& a, const Fc4<R>& fc,
+                        const Grp& g, int64_t i1, R lt, R lb) {
+  const bool live = lb > lt;
+  Occ<R> ot{}, ob{};
+  uint64_t f = 0;
+  const int wt = (int)(lt & 511), wb = (int)(lb & 511);
+  if (live) {
+    const uint32_t* rt = a.blocks + (int64_t)(lt >> 9) * Geo<R>::kWidth;
+    const uint32_t* rb = a.blocks + (int64_t)(lb >> 9) * Geo<R>::kWidth;
+    ot = load_occ<R>(rt);
+    ob = load_occ<R>(rb);
+    f = g.sum(PairAllPart<Grp::kG>{rt + Geo<R>::kWordOff,
+                                   rb + Geo<R>::kWordOff, wt, wb});
+  }
+  for (int c = g.rank(); c < 4; c += g.size()) {
+    R top = 0, bot = 0;
+    if (live) {
+      top = fc.at(c) + ot.at(c) + (R)count_of((uint32_t)f, wt, c) -
+            (R)((c == 0 && a.zoff < lt) ? 1 : 0);
+      bot = fc.at(c) + ob.at(c) + (R)count_of((uint32_t)(f >> 32), wb, c) -
+            (R)((c == 0 && a.zoff < lb) ? 1 : 0);
+    }
+    ftab_store<R>(a.out, i1 | ((int64_t)c << 22), top, bot);
+  }
 }
 
 // Ask for r's block row (its first and last line) ahead of its scan, so
@@ -1000,7 +1177,7 @@ FM_HD int32_t resolve_row(const T& t, const ResolveArgs<R>& a, R row,
   return v;
 }
 
-// ---- presolve pick (K5): the SA rows a mate's classification asks for ----
+// ---- the presolve (K5): the SA rows a mate's classification asks for ----
 
 template <typename R>
 struct PickArgs {
@@ -1012,78 +1189,165 @@ struct PickArgs {
   int32_t ihits;
   int32_t min_hitlen;
   int32_t rk;
-  R* rows;         // [M, rk]; unused slots 0
-  int32_t* nrows;  // [M]
+  R* flat;    // [n] the mates' rows, one after another
+  int64_t n;
+};
+
+// A kernel block's mates (kPickWarps warps of kPickMatesPerWarp mates):
+// the block scans their row counts as one warp. A mate lays at most
+// kPickMaxRk rows (the block stages its mates' rows in shared memory).
+constexpr int kPickWarps = 16;
+constexpr int kPickMatesPerWarp = 2;
+constexpr int kPickMates = kPickWarps * kPickMatesPerWarp;  // 32
+constexpr int kPickMaxRk = 128;
+
+// Entry i (0..2 mh) of mate m: strand i / mh, slot i % mh; past 2 mh,
+// an empty entry.
+template <typename R>
+struct Hit {
+  R top, size;
+  int32_t len;
 };
 
 template <typename R>
-FM_HD R hit_size(const R* t, const R* b, int i) {
-  return t[i] >= 0 ? b[i] - t[i] : 0;
+FM_HD Hit<R> load_hit(const PickArgs<R>& a, int64_t m, int i) {
+  Hit<R> h{0, 0, 0};
+  if (i < 2 * a.mh) {
+    const int64_t o = 2 * m * a.mh + i;
+    h.top = ldg(a.h_top + o);
+    h.size = h.top >= 0 ? ldg(a.h_bot + o) - h.top : (R)0;
+    h.len = ldg(a.h_len + o);
+  }
+  return h;
 }
 
 // Mate m's rows, as classify/engine.py _presolve_pick_rows of the JAX
-// package: strand choice by score then max length, the
-// max_genome_hit_size budget mghs, the gate len > min_hitlen, size != 0,
-// chosen strand, min(size, mghs) <= ihits; gated hits in the stable
-// order of the key min(size, 2^18) * 4096 - len (fw hits before rc on
-// ties), each taken while the nelts before it sum to less than mghs,
-// its rows laid into the rk slots from that sum on. Entry i is strand
-// i / mh, slot i % mh. A hit's place in the stable order is the number
-// of gated hits that sort before it, so no sort is needed: 2 mh is at
-// most 32 on the first pass.
-template <typename R>
-FM_HD void pick_mate(const PickArgs<R>& a, int64_t m) {
-  const int mh = a.mh, n = 2 * a.mh;
-  const R* t = a.h_top + 2 * m * mh;
-  const R* b = a.h_bot + 2 * m * mh;
-  const int32_t* ln = a.h_len + 2 * m * mh;
-  int32_t sc[2] = {0, 0}, mx[2] = {0, 0};
-  for (int i = 0; i < n; ++i) {
-    const int s = i / mh;
-    if (ln[i] >= a.min_hitlen && hit_size<R>(t, b, i) != 0) {
-      sc[s] += (ln[i] - 15) * (ln[i] - 15);
-      if (ln[i] > mx[s]) mx[s] = ln[i];
+// package, on a group of 32 lanes (a warp on the card), lane p holding
+// entries p, p + 32, ...: the strand choice by score (the sign of one
+// warp sum of fw's scores less rc's) then max length (warp maxima), the
+// max_genome_hit_size budget mghs, the gate len > min_hitlen, size !=
+// 0, chosen strand, nelt = min(size, mghs) <= ihits; gated hits in the
+// stable order of the key min(size, 2^18) * 4096 - len, fw before rc on
+// ties. A hit's place is the sum `prev` of the nelts of the gated hits
+// that sort before it, from the keys and nelts shuffled round the warp
+// (only lanes whose nelt is not 0 are visited); it is taken when nelt >
+// 0 and prev < mghs, its rows laid into rows[prev ..], clipped to rk.
+// Returns nrows = min(total, rk); rows[0 .. nrows) are written.
+template <typename R, typename W>
+FM_HD int32_t mate_rows(const PickArgs<R>& a, const W& w, int64_t m,
+                        R* rows) {
+  constexpr int P = W::kG;
+  const int mh = a.mh, rounds = (2 * mh + P - 1) / P;
+  const auto scoring = [&](const Hit<R>& e) {
+    return e.len >= a.min_hitlen && e.size != 0;
+  };
+  int64_t diff = 0;  // fw's score less rc's
+  int32_t mx[2] = {0, 0};
+  for (int r = 0; r < rounds; ++r) {
+    const auto h = w.vals([&](int p) { return load_hit<R>(a, m, r * P + p); });
+    diff += w.sum([&](int p) -> int64_t {
+      const Hit<R> e = h.own(p);
+      const int64_t l = e.len, sc = scoring(e) ? (l - 15) * (l - 15) : 0;
+      return r * P + p < mh ? sc : -sc;
+    });
+    for (int s = 0; s < 2; ++s) {
+      const int32_t v = w.max([&](int p) -> int32_t {
+        const Hit<R> e = h.own(p);
+        return scoring(e) && (r * P + p < mh) == (s == 0) ? e.len : 0;
+      });
+      if (v > mx[s]) mx[s] = v;
     }
   }
-  const bool fw = sc[0] > sc[1] || (sc[0] == sc[1] && mx[0] > mx[1]);
-  const bool rc = sc[1] > sc[0] || (sc[0] == sc[1] && mx[1] > mx[0]);
-  const bool use[2] = {fw || (!fw && !rc), rc || (!fw && !rc)};
+  const bool fw = diff > 0 || (diff == 0 && mx[0] > mx[1]);
+  const bool rc = diff < 0 || (diff == 0 && mx[1] > mx[0]);
+  const bool use0 = fw || !rc, use1 = rc || !fw;
+  // entry i's strand is chosen (an entry past 2 mh is empty)
+  const auto uses = [&](int i) { return i < mh ? use0 : use1; };
   R maxsz = 0;
-  for (int i = 0; i < n; ++i) {
-    const R size = hit_size<R>(t, b, i);
-    if (ln[i] >= a.min_hitlen && size != 0 && use[i / mh] && size > maxsz)
-      maxsz = size;
+  for (int r = 0; r < rounds; ++r) {
+    const R v = w.max([&](int p) -> R {
+      const Hit<R> e = load_hit<R>(a, m, r * P + p);
+      return scoring(e) && uses(r * P + p) ? e.size : (R)0;
+    });
+    if (v > maxsz) maxsz = v;
   }
-  const R mghs = maxsz > (R)a.khits
-                     ? maxsz + (R)((int)use[0] + (int)use[1]) * (R)a.khits
-                     : (R)a.khits;
-  R* rows = a.rows + m * a.rk;
-  for (int s = 0; s < a.rk; ++s) rows[s] = 0;
-  R total = 0;
-  for (int i = 0; i < n; ++i) {
-    const R size = hit_size<R>(t, b, i);
-    const R nelt = size < mghs ? size : mghs;
-    if (!(ln[i] > a.min_hitlen && size != 0 && use[i / mh] &&
-          nelt <= (R)a.ihits))
-      continue;
-    const R key = (size < ((R)1 << 18) ? size : ((R)1 << 18)) * 4096 - ln[i];
-    R prev = 0;  // nelts of the gated hits that sort before hit i
-    for (int k = 0; k < n; ++k) {
-      const R sk = hit_size<R>(t, b, k);
-      const R nk = sk < mghs ? sk : mghs;
-      if (k == i || !(ln[k] > a.min_hitlen && sk != 0 && use[k / mh] &&
-                      nk <= (R)a.ihits))
-        continue;
-      const R kk = (sk < ((R)1 << 18) ? sk : ((R)1 << 18)) * 4096 - ln[k];
-      if (kk < key || (kk == key && k < i)) prev += nk;
+  const int64_t mghs =
+      maxsz > (R)a.khits
+          ? (int64_t)maxsz + ((int64_t)use0 + (int64_t)use1) * a.khits
+          : (int64_t)a.khits;
+  // entry i's sort key and nelt (0 when not gated)
+  struct Keyed {
+    int64_t key, nelt;
+    R top;
+  };
+  const auto keyed = [&](int i) {
+    const Hit<R> e = load_hit<R>(a, m, i);
+    const int64_t size = e.size, nelt = size < mghs ? size : mghs;
+    Keyed k;
+    k.key = (size < ((int64_t)1 << 18) ? size : ((int64_t)1 << 18)) * 4096 -
+            e.len;
+    k.nelt = e.len > a.min_hitlen && size != 0 && uses(i) && nelt <= a.ihits
+                 ? nelt
+                 : 0;
+    k.top = e.top;
+    return k;
+  };
+  int64_t total = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const auto me = w.vals([&](int p) { return keyed(r * P + p); });
+    auto prev = w.vals([](int) -> int64_t { return 0; });
+    for (int r2 = 0; r2 < rounds; ++r2) {
+      const auto other = w.vals([&](int p) {
+        return r2 == r ? me.own(p) : keyed(r2 * P + p);
+      });
+      const auto okey = w.vals([&](int p) { return other.own(p).key; });
+      const auto onelt = w.vals([&](int p) { return other.own(p).nelt; });
+      // the entries that add to a prev: gated, nelt not 0
+      const uint32_t live = w.ballot([&](int p) { return onelt.own(p) != 0; });
+      prev = w.vals([&](int p) {
+        int64_t s = prev.own(p);
+        const int64_t mine = me.own(p).key;
+        const int i = r * P + p;
+        for (uint32_t bits = live; bits != 0; bits &= bits - 1) {
+          const int k = ctz32(bits);
+          const int64_t kk = okey.at(k), nk = onelt.at(k);
+          if (kk < mine || (kk == mine && r2 * P + k < i)) s += nk;
+        }
+        return s;
+      });
     }
-    if (nelt > 0 && prev < mghs) {
-      total += nelt;
-      for (R s = prev; s < prev + nelt && s < (R)a.rk; ++s)
-        rows[s] = t[i] + (s - prev);
-    }
+    const auto taken = [&](int p) {
+      return me.own(p).nelt > 0 && prev.own(p) < mghs;
+    };
+    total += w.sum([&](int p) -> int64_t {
+      return taken(p) ? me.own(p).nelt : 0;
+    });
+    w.each([&](int p) {
+      if (!taken(p)) return;
+      const int64_t lo = prev.own(p), hi = lo + me.own(p).nelt;
+      const R top = me.own(p).top;
+      for (int64_t s = lo; s < hi && s < a.rk; ++s)
+        rows[s] = top + (R)(s - lo);
+    });
   }
-  a.nrows[m] = (int32_t)(total < (R)a.rk ? total : (R)a.rk);
+  return (int32_t)(total < a.rk ? total : a.rk);
+}
+
+// A mate's nrows rows into flat[doff ..], slots past n dropped: slots
+// rank, rank + size, ... of them, for the thread `rank` of `size`.
+template <typename R>
+FM_HD void lay_rows(const R* rows, int32_t nrows, int64_t doff, R* flat,
+                    int64_t n, int rank, int size) {
+  for (int s = rank; s < nrows; s += size)
+    if (doff + s < n) flat[doff + s] = rows[s];
+}
+
+// The flat slots from the mates' grand total to n hold 0: slots rank,
+// rank + size, ... of them, for the thread `rank` of `size`.
+template <typename R>
+FM_HD void fill_tail(R* flat, int64_t total, int64_t n, int rank, int size) {
+  for (int64_t j = (total < n ? total : n) + rank; j < n; j += size)
+    flat[j] = 0;
 }
 
 }  // namespace fm

@@ -1,65 +1,130 @@
-// K4: the depth-12 ftab, one thread per depth-12 entry, written in place
-// into its preallocated packed-row table.
+// K4: the depth-12 ftab, level 2, written in place into its
+// preallocated packed-row table.
 //
 // Replaces the JAX package's ops/fm_jax.py _ftab12_rows_graph (and the
-// in-place _ufm_write_rows). The level-1 ranges LF(t0, c10), LF(b0, c10)
-// of the 2^20 depth-10 entries come from one launch of the rank kernel
-// (rank.cu) before this one, so each of the 2^24 threads here does the
-// two level-2 LF queries of its entry and stores its (top, bot) pair in
-// the pack_ftab_rows layout. Guards follow native/fmwalk.cpp
-// fm_ftab_extend (fm_common.cuh ftab12_entry).
+// in-place _ufm_write_rows). The level-1 ranges t1/b1[i1] = LF(t0[e10],
+// c10) / LF(b0[e10], c10), i1 = e10 | c10 << 20, come from one launch of
+// the rank kernel (rank.cu) before this one, on the same stream. Here a
+// tile of kTile threads takes one level-1 range (fm_common.cuh
+// ftab12_range): it reads the block rows of the range's two ends once,
+// in 16-byte chunks split over its threads, counts every code before
+// each end in one scan, and writes the four entries i1 | c11 << 22 that
+// extend the range, one c11 a thread. The four entries share their
+// level-1 range, so a range's rows are scanned once, not once per c11:
+// at most 2^23 row scans where one thread an entry made 2^25. Guards
+// follow native/fmwalk.cpp fm_ftab_extend.
 //
-// Bound on an H100: ~42M rank queries at 256 Mbp, each 10 integer
-// operations plus 4 and a popcount per block word before its row (16 on
-// average), so the arithmetic (int32 at 16.75 TOP/s, popcount at 4.19
-// TOP/s) outweighs the bytes: the depth-10 pairs in, the 134/268 MB of
-// entries out and each 32-byte sector of the block table touched once.
-// Neighbouring threads write neighbouring entries, so the stores
-// coalesce; neighbouring entries extend neighbouring depth-10 ranges,
-// so most block reads hit L1/L2.
+// A warp takes 32 consecutive ranges at a time from an int32 work
+// counter (one atomic for the warp, not one a range), over a persistent
+// grid (the resident blocks), and loads their ends at once; its tiles
+// then scan neighbouring ranges each round, so the stores of each c11
+// quarter coalesce. Consecutive i1 are neighbouring 11-mers (c10 is the
+// most significant char, c0 the least), so their ranges lie side by
+// side in the BWT and neighbouring tiles read the same or the next
+// block rows: the sweep reads the block table in order. Columns 32-35
+// (narrow) and 32-39 (wide) of each row are not written.
+//
+// Bound on an H100: the larger of the bytes (the level-1 pairs and the
+// depth-10 pairs in, every entry out, each 32-byte sector of the block
+// table that the scans touch once) over 3.35 TB/s and the arithmetic of
+// one all-code scan per non-empty range end (chip_smoke.py counts both).
 #include <cuda_runtime.h>
 
 #include "fm_common.cuh"
 
 namespace {
 
+// Threads per level-1 range, chosen on the card (PERF.md §6,
+// evaluation/tile_sweep.py, which builds this source at each size).
+constexpr int kTile = 4;
+constexpr int kThreads = 128;
+constexpr int kPerWarp = 32 / kTile;  // ranges a warp scans at once
+
+// A warp takes 32 consecutive level-1 ranges from the counter: lane l
+// loads range l's ends (one coalesced load of each table, none waiting
+// on another), then the warp's tiles scan the 32 in 32 / kPerWarp
+// rounds, each tile's ends shuffled to it from the lane holding them.
 template <typename R>
-__global__ void ftab12_kernel(const uint32_t* __restrict__ blocks,
-                              const R* __restrict__ fchr, R zoff,
-                              const R* __restrict__ t0,
-                              const R* __restrict__ b0,
-                              const R* __restrict__ t1,
-                              const R* __restrict__ b1,
-                              uint32_t* __restrict__ out) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ((int64_t)1 << 24)) return;
-  fm::ftab12_entry<R>(blocks, fchr, zoff, t0, b0, t1, b1, out, idx);
+__global__ void __launch_bounds__(kThreads)
+    ftab12_kernel(const fm::Ftab12Args<R> a, const R* __restrict__ fchr,
+                  int32_t* __restrict__ next) {
+  namespace cg = fm::cg;
+  const auto block = cg::this_thread_block();
+  const auto warp = cg::tiled_partition<32>(block);
+  const fm::Tile<kTile> g{cg::tiled_partition<kTile>(block)};
+  const int lane = (int)warp.thread_rank(), sub = lane / kTile;
+  const fm::Fc4<R> fc{{fm::ldg(fchr), fm::ldg(fchr + 1), fm::ldg(fchr + 2),
+                       fm::ldg(fchr + 3)}};
+  for (;;) {
+    int32_t v = 0;
+    if (lane == 0) v = atomicAdd(next, 1);
+    const int64_t base = (int64_t)warp.shfl(v, 0) * 32;
+    if (base >= fm::kN1) break;
+    R lt, lb;
+    fm::level1_range<R>(a, base + lane, &lt, &lb);
+    for (int r = 0; r < 32 / kPerWarp; ++r) {
+      const int k = r * kPerWarp + sub;
+      fm::ftab12_range<R>(a, fc, g, base + k, warp.shfl(lt, k),
+                          warp.shfl(lb, k));
+    }
+  }
 }
+
+static_assert(fm::kN1 % 32 == 0, "the warp takes divide the ranges");
 
 template <typename R>
 int launch(const void* blocks, const void* fchr, int64_t zoff,
            const void* t0, const void* b0, const void* t1, const void* b1,
-           void* out, void* stream) {
-  const int threads = 256;
-  const int64_t grid = (((int64_t)1 << 24) + threads - 1) / threads;
-  ftab12_kernel<R><<<(unsigned)grid, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)blocks, (const R*)fchr, (R)zoff, (const R*)t0,
-      (const R*)b0, (const R*)t1, (const R*)b1, (uint32_t*)out);
+           void* out, void* next, void* stream) {
+  fm::Ftab12Args<R> a;
+  a.blocks = (const uint32_t*)blocks;
+  a.zoff = (R)zoff;
+  a.t0 = (const R*)t0;
+  a.b0 = (const R*)b0;
+  a.t1 = (const R*)t1;
+  a.b1 = (const R*)b1;
+  a.out = (uint32_t*)out;
+  int grid = 0;
+  const cudaError_t e = fm::persistent_grid<ftab12_kernel<R>>(
+      kThreads, kTile, fm::kN1, &grid);
+  if (e != cudaSuccess) return (int)e;
+  ftab12_kernel<R><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      a, (const R*)fchr, (int32_t*)next);
   return (int)cudaGetLastError();
+}
+
+// The launch shape: tile, threads a block, grid, registers a thread
+// (ptxas's count), resident grid (n is fixed: the 2^22 ranges).
+template <typename R>
+int config(int32_t* out) {
+  int grid = 0, resident = 0;
+  cudaError_t e = fm::persistent_grid<ftab12_kernel<R>>(
+      kThreads, kTile, fm::kN1, &grid, &resident);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, ftab12_kernel<R>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = kTile;
+  out[1] = kThreads;
+  out[2] = grid;
+  out[3] = attr.numRegs;
+  out[4] = resident;
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int fm_ftab12_narrow(const void* blocks, const void* fchr,
-                                int64_t zoff, const void* t0, const void* b0,
-                                const void* t1, const void* b1, void* out,
-                                void* stream) {
-  return launch<int32_t>(blocks, fchr, zoff, t0, b0, t1, b1, out, stream);
-}
+#define FM_FTAB12_ENTRY(NAME, R)                                            \
+  extern "C" int NAME(const void* blocks, const void* fchr, int64_t zoff,   \
+                      const void* t0, const void* b0, const void* t1,       \
+                      const void* b1, void* out, void* next,                \
+                      void* stream) {                                       \
+    return launch<R>(blocks, fchr, zoff, t0, b0, t1, b1, out, next,         \
+                     stream);                                               \
+  }
 
-extern "C" int fm_ftab12_wide(const void* blocks, const void* fchr,
-                              int64_t zoff, const void* t0, const void* b0,
-                              const void* t1, const void* b1, void* out,
-                              void* stream) {
-  return launch<int64_t>(blocks, fchr, zoff, t0, b0, t1, b1, out, stream);
+FM_FTAB12_ENTRY(fm_ftab12_narrow, int32_t)
+FM_FTAB12_ENTRY(fm_ftab12_wide, int64_t)
+
+extern "C" int fm_ftab12_config(int32_t wide, int64_t, int32_t* out) {
+  return wide ? config<int64_t>(out) : config<int32_t>(out);
 }

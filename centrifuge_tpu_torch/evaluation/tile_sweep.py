@@ -1,20 +1,23 @@
-"""Time K1 (csrc/search.cu) and K3 (csrc/resolve.cu) at each tile size.
+"""Time K1 (csrc/search.cu), K3 (csrc/resolve.cu) and K4
+(csrc/ftab12.cu) at each tile size.
 
     python3 -m centrifuge_tpu_torch.evaluation.tile_sweep
 
-Needs one CUDA card and nvcc. Builds both sources once for each tile
-size G (4 and 8: a copy of each with its kTile constant set to G) into
-csrc/_build/sweep/, then, on the
+Needs one CUDA card and nvcc. Builds the three sources once for each
+tile size G (4 and 8: a copy of each with its kTile constant set to G)
+into csrc/_build/sweep/, then, on the
 256 Mbp bigdb database (evaluation/bigdb.py: built into
 .chip_smoke_cache/ when absent, as chip_smoke.py builds it), times K1 on
-the first 32,768-read batch (65,536 lanes, 16 hit slots) and K3 on that
-batch's presolve rows, by CUDA events, the sizes in turns (4, 8, 8, 4).
-Every size's outputs must equal the plain versions'. Then, at each
-size, both kernels on the first quarter and sixteenth of those lanes
-and rows: a time that falls with the work says the kernel is held by
-its throughput, one that stays says by its longest chains. Prints one
-JSON line per timed turn and per size's scaling, then a summary line
-and the card's nvidia-smi line.
+the first 32,768-read batch (65,536 lanes, 16 hit slots), K3 on that
+batch's presolve rows and K4's launch (level 2 of the depth-12 ftab,
+from the index's level-1 ranges), by CUDA events, the sizes in turns
+(4, 8, 8, 4). Every size's outputs must equal the plain versions'. Then,
+at each size, K1 and K3 on the first quarter and sixteenth of those
+lanes and rows: a time that falls with the work says the kernel is held
+by its throughput, one that stays says by its longest chains (K4's work
+is fixed: the 2^22 level-1 ranges). Prints one JSON line per timed turn
+and per size's scaling, then a summary line and the card's nvidia-smi
+line.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..ops import fm_torch as fmt
 from . import bigdb
 
 TILES = (4, 8)
-KERNELS = ("search", "resolve")
+KERNELS = ("search", "resolve", "ftab12")
 TILE_LINE = re.compile(r"constexpr int kTile = \d+;")   # as each source sets it
 BATCH_READS = 32768
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -47,8 +50,8 @@ CACHE = os.path.join(REPO, ".chip_smoke_cache")
 
 
 def build(tile: int) -> dict:
-    """The search and resolve libraries built with FM_TILE=tile, loaded:
-    name -> ctypes library, with the signatures _cuda sets."""
+    """The search, resolve and ftab12 libraries built with kTile = tile,
+    loaded: name -> ctypes library, with the signatures _cuda sets."""
     out_dir = os.path.join(_cuda.BUILD_DIR, "sweep")
     os.makedirs(out_dir, exist_ok=True)
     procs = []
@@ -132,6 +135,12 @@ def main(argv) -> int:
         want[0], want[1], want[3], cls.khits, cls.ihits(idx.compressed),
         eng.min_hitlen, eng_mod.presolve_rk(cls.khits))
     want_t = fmt.resolve_rows_plain(fm, flat)
+    t0, b0 = fm.ftab_top[:fmt.N10], fm.ftab_bot[:fmt.N10]
+    want12 = torch.zeros_like(fm.ftab12_rows)
+    fmt.ftab12_plain(fm.blocks, fm.fchr, fm.zoff, t0, b0, want12)
+    t1, b1 = fmt.ftab12_level1(fm.blocks, fm.fchr, fm.zoff, t0, b0)
+    out12 = torch.zeros_like(want12)
+    ftab12_args = (fm.blocks, fm.fchr, fm.zoff, t0, b0, t1, b1, out12)
     times = {t: {k: [] for k in KERNELS} for t in TILES}
     for tile in TILES + TILES[::-1]:
         use(builds[tile])
@@ -141,6 +150,9 @@ def main(argv) -> int:
                 raise SystemExit(f"tile {tile}: search differs from plain")
         if not torch.equal(fmt.resolve_rows(fm, flat), want_t):
             raise SystemExit(f"tile {tile}: resolve differs from plain")
+        out12.zero_()
+        if not torch.equal(fmt.ftab12_level2(*ftab12_args), want12):
+            raise SystemExit(f"tile {tile}: ftab12 differs from plain")
         row = dict(tile=tile,
                    search_ms=time_cuda(lambda: eng_mod.search_lanes(*args),
                                        10),
@@ -149,9 +161,13 @@ def main(argv) -> int:
                    search=_cuda.persistent_config("search", fm.wide,
                                                   len(seqs)),
                    resolve=_cuda.persistent_config("resolve", fm.wide,
-                                                   flat.numel()))
-        times[tile]["search"].append(row["search_ms"])
-        times[tile]["resolve"].append(row["resolve_ms"])
+                                                   flat.numel()),
+                   ftab12_ms=time_cuda(lambda: fmt.ftab12_level2(
+                       *ftab12_args), 5),
+                   ftab12=_cuda.persistent_config("ftab12", fm.wide,
+                                                  4 * fmt.N10))
+        for k in KERNELS:
+            times[tile][k].append(row[f"{k}_ms"])
         print(json.dumps(row), flush=True)
     for tile in TILES:
         use(builds[tile])

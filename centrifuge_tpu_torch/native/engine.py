@@ -240,9 +240,8 @@ class NativeAssigner:
                 # nor serialize against the overlap pipeline's dev_lock.
                 # Multi-host keeps the device path (SPMD lockstep).
                 res = resolver.first_hits(seqs, mo[:n])
-                if hasattr(engine, "stats"):
-                    engine.stats["ext_lanes"] += n
-                    engine.stats["ext_searches"] += 1
+                if hasattr(engine, "add_stats"):
+                    engine.add_stats(ext_lanes=n, ext_searches=1)
             else:
                 res = engine.search_first_hits(seqs, mo[:n])
             if n:

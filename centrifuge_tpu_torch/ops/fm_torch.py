@@ -185,36 +185,64 @@ def ftab12_plain(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
     return out
 
 
+def ftab12_level1(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
+                  t0: torch.Tensor, b0: torch.Tensor):
+    """The depth-12 ftab's level 1: t1/b1[e10 | c10 << 20] = LF(t0[e10],
+    c10) / LF(b0[e10], c10), from one rank-kernel launch (K0) over the
+    8,388,608 (row, char) queries on CUDA tensors, the plain rank on CPU
+    tensors."""
+    rows1 = torch.cat([t0.repeat(4), b0.repeat(4)])
+    chars1 = torch.arange(4, dtype=torch.int32, device=blocks.device
+                          ).repeat_interleave(N10).repeat(2)
+    l1 = lf(blocks, fchr, zoff, rows1, chars1)
+    return l1[: 4 * N10], l1[4 * N10:]
+
+
+def ftab12_level2(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
+                  t0: torch.Tensor, b0: torch.Tensor, t1: torch.Tensor,
+                  b1: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """K4's launch (CUDA tensors only): the 2^24 depth-12 entries from the
+    depth-10 ranges t0/b0 and their level-1 extensions t1/b1, written in
+    place into `out`, one tile of threads a level-1 range
+    (csrc/ftab12.cu)."""
+    _cuda.require_cuda(blocks, fchr, t0, b0, t1, b1, out)
+    wide = is_wide(blocks)
+    rdt = torch.int64 if wide else torch.int32
+    if out.dtype != torch.int32 or out.shape != (
+            N12 // (8 if wide else 16), blocks.shape[1]):
+        raise ValueError("out must be the int32 packed depth-12 table")
+    if any(t.dtype != rdt for t in (fchr, t0, b0, t1, b1)) \
+            or t0.shape != (N10,) or b0.shape != (N10,) \
+            or t1.shape != (4 * N10,) or b1.shape != (4 * N10,):
+        raise ValueError("ftab12 ranges must be [2^20] (depth 10) and "
+                         "[2^22] (level 1) in the row dtype")
+    _cuda.require_aligned(blocks, out)
+    lib = _cuda.lib("ftab12")
+    fn = lib.fm_ftab12_wide if wide else lib.fm_ftab12_narrow
+    rc = fn(blocks.data_ptr(), fchr.data_ptr(), int(zoff), t0.data_ptr(),
+            b0.data_ptr(), t1.data_ptr(), b1.data_ptr(), out.data_ptr(),
+            _cuda.work_counter(blocks.device).data_ptr(),
+            _cuda.stream_ptr(blocks.device))
+    _cuda.check(rc, "ftab12 kernel")
+    _cuda.LAUNCHES["ftab12"] += 1
+    return out
+
+
 def build_ftab12(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
                  t0: torch.Tensor, b0: torch.Tensor,
                  out: torch.Tensor) -> torch.Tensor:
     """K4: the depth-12 ftab written in place into `out`, the zeroed
     packed-row table [2^24 / (16 | 8), 36 | 40]. On CUDA tensors: one
     rank-kernel launch for the level-1 LF pairs, then one ftab12-kernel
-    launch with a thread per depth-12 entry; on CPU tensors the plain
-    version."""
+    launch with a tile of threads a level-1 range; on CPU tensors the
+    plain version."""
     if t0.shape[0] != N10:
         raise ValueError("the depth-12 ftab extends a depth-10 ftab")
     if not blocks.is_cuda:
         return ftab12_plain(blocks, fchr, zoff, t0, b0, out)
     _cuda.require_cuda(blocks, fchr, t0, b0, out)
-    wide = is_wide(blocks)
-    if out.dtype != torch.int32 or out.shape != (
-            N12 // (8 if wide else 16), blocks.shape[1]):
-        raise ValueError("out must be the int32 packed depth-12 table")
-    rows1 = torch.cat([t0.repeat(4), b0.repeat(4)])
-    chars1 = torch.arange(4, dtype=torch.int32, device=blocks.device
-                          ).repeat_interleave(N10).repeat(2)
-    l1 = lf(blocks, fchr, zoff, rows1, chars1)
-    t1, b1 = l1[: 4 * N10], l1[4 * N10:]
-    lib = _cuda.lib("ftab12")
-    fn = lib.fm_ftab12_wide if wide else lib.fm_ftab12_narrow
-    rc = fn(blocks.data_ptr(), fchr.data_ptr(), int(zoff), t0.data_ptr(),
-            b0.data_ptr(), t1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-            _cuda.stream_ptr(blocks.device))
-    _cuda.check(rc, "ftab12 kernel")
-    _cuda.LAUNCHES["ftab12"] += 1
-    return out
+    t1, b1 = ftab12_level1(blocks, fchr, zoff, t0, b0)
+    return ftab12_level2(blocks, fchr, zoff, t0, b0, t1, b1, out)
 
 
 @dataclass

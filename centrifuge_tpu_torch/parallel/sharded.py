@@ -677,8 +677,8 @@ class ShardedSearchEngine(BatchSearchEngine):
     def _launch(self, handle, start: np.ndarray, first_hit_only: bool):
         index = self.index
         args = (handle.mh, self.min_hitlen, self.increment, first_hit_only)
-        self.stats["upload_bytes"] += (handle.rseqp.nbytes
-                                       + handle.lengths.nbytes)
+        self.add_stats(upload_bytes=handle.rseqp.nbytes
+                       + handle.lengths.nbytes)
         if not index.on_cuda:
             handle.host_out = sharded_search(
                 index, torch.from_numpy(handle.rseqp),

@@ -22,9 +22,10 @@ JSON line; any failure exits non-zero:
             4096 and 1) on (2, 2) and (1, 4) meshes of cuda:0, narrow and
             wide, and across cards when there are several, also against
             K1 and K3 on the same lanes and rows, one launch per dp row;
-            K1's and K3's launch shape: a tile of more than one thread a
-            lane or row, a persistent grid capped at what the items fill
-            (one block for the 2-lane first-hit search)
+            K1's, K3's and K4's launch shape: a tile of more than one
+            thread a lane, row or level-1 range, a persistent grid
+            capped at what the items fill (one block for the 2-lane
+            first-hit search)
   synth     the classify CLI on the card (host resolve), then
             GPUClassificationPipeline with host_resolve=False (device
             resolve): unpaired output and report and paired output
@@ -49,10 +50,12 @@ JSON line; any failure exits non-zero:
             the first's. Launch counts of each path, the first 300 reads
             against the host oracle (ClassificationPipeline + FMOracle),
             reads/s, kernel times at this size by CUDA events beside
-            their plain versions and bounds (K0 on K4's level-1 queries,
-            K1 and K5 on the first batch, K3 on that batch's presolve
-            rows, with K1's and K3's tile, grid and registers, and the
-            plain versions' lockstep steps and longest walk: the
+            their plain versions and bounds (K0 on K4's level-1 queries;
+            K4's own launch and, apart, the whole depth-12 build, each
+            with its own bound; K1 and K5 on the first batch, K5's
+            kernel alone and its wrapper beside it; K3 on that batch's
+            presolve rows; K1's, K3's and K4's tile, grid and registers,
+            and the plain versions' lockstep steps and longest walk: the
             longest chains of dependent reads), peak device memory
   full_sharded  the same reads through a (1, 4) mesh of cuda:0 (K6),
             host and device resolve, each stream byte-equal to the
@@ -99,12 +102,19 @@ SECTOR = 32                    # bytes: the unit the L2 moves to/from HBM
 # bwt_at() takes 5. The search's read decoding is not counted, so its
 # bound is, if anything, too low.
 RANK_OPS, WORD_OPS, PARTIAL_OPS, BWT_OPS = 10, 4, 7, 5
-# The presolve pick (K5), per hit entry: its size, the scoring and gate
+# K4's all-code scan of a block row end (fm_common.cuh PairAllPart,
+# planes_before): per 32 bases before the end, 12 operations (the mask,
+# the two bit planes, their AND, the field shifts and adds) and 3
+# population counts; per end, 38 more (its row address and occ, and LF
+# of each of the 4 codes from the planes, the '$' correction). K4's
+# operations bound is that of the cheaper scheme on the same ends: this
+# one, or one rank per (end, code) as counted above.
+ALL_HALF_OPS, ALL_HALF_POPC, ALL_END_OPS = 12, 3, 38
+# The presolve (K5), per hit entry: its size, the scoring and gate
 # tests and its sort key (about 20 operations); per mate, the compares
-# of a sort of its 2 mh keys (2 mh log2(2 mh)); per flat slot, the
-# search for its mate (log2 M) and the copy. K3's exit tests (the sample
-# and boundary checks) are not counted, so its bound is, if anything,
-# too low.
+# of a sort of its 2 mh keys (2 mh log2(2 mh)); per flat slot, its
+# index and the copy. K3's exit tests (the sample and boundary checks)
+# are not counted, so its bound is, if anything, too low.
 PICK_OPS = 20
 SEARCH_MH = 16                 # hit slots per lane in the K1 checks
 BATCH_READS = 32768            # bench.py's batch: 65,536 lanes
@@ -341,6 +351,72 @@ class Smoke:
                     bound_by="bytes" if t_b >= t_o else "operations",
                     moved_bytes=nbytes, int_ops=int_ops, popc_ops=popc)
 
+    def presolve_kernel_ms(self, pre, flat, reps: int) -> float:
+        """ms per K5 launch by CUDA events: the kernel alone, called
+        through its C entry as the wrapper calls it, each launch on a
+        ticket buffer zeroed before the timing; the wrapper's launch
+        count is not touched."""
+        torch, cuda = self.torch, self.m["cuda"]
+        h_top, h_bot, h_len, khits, ihits, mhl, rk = pre
+        M = h_top.shape[0] // 2
+        lib = cuda.lib("presolve")
+        fn = lib.fm_presolve_wide if h_top.dtype == torch.int64 \
+            else lib.fm_presolve_narrow
+        per = self.m["engine"].PRESOLVE_MATES_PER_BLOCK
+        states = torch.zeros((reps + 1, 1 + -(-M // per)),
+                             dtype=torch.int64, device=self.dev)
+        out = torch.empty_like(flat)
+        stream = cuda.stream_ptr(self.dev)
+
+        def launch(k):
+            cuda.check(fn(h_top.data_ptr(), h_bot.data_ptr(),
+                          h_len.data_ptr(), M, h_top.shape[1], khits, ihits,
+                          mhl, rk, out.data_ptr(), out.numel(),
+                          states[k].data_ptr(), stream), "presolve kernel")
+
+        launch(reps)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for k in range(reps):
+            launch(k)
+        e.record()
+        e.synchronize()
+        self.equal("presolve (timed kernel)", [out], [flat])
+        return s.elapsed_time(e) / reps
+
+    def ftab12_bound(self, fm, t0, b0, t1, b1) -> dict:
+        """K4's bound on this run's inputs: bytes = the depth-10 and
+        level-1 pairs in, every depth-12 entry out, and each 32-byte
+        sector of the block table that the scans of the non-empty
+        level-1 ranges' ends touch, once; operations = the cheaper of
+        one all-code scan per end and one rank per (end, code)."""
+        torch = self.torch
+        i64 = torch.int64
+        live = (b0 > t0).repeat(4) & (b1 > t1)
+        ends = torch.cat([t1[live], b1[live]]).to(i64)
+        rsz = fm.fchr.element_size()
+        # the sectors: occ and the words before each end, as a rank of
+        # each code reads them
+        nbytes, rank_ops, rank_popc = self.traffic(fm, dict(
+            rank_rows=[ends] * 4,
+            rank_chars=[torch.full_like(ends, c) for c in range(4)]))
+        halves = int(((ends & 511) + 31).div(32, rounding_mode="floor")
+                     .sum())
+        all_ops = ALL_END_OPS * ends.numel() + ALL_HALF_OPS * halves
+        all_popc = ALL_HALF_POPC * halves
+
+        def t_ops(ops, popc):
+            return max(ops / INT32_OPS_PER_S, popc / POPC_OPS_PER_S)
+
+        ops, popc = (all_ops, all_popc) if t_ops(all_ops, all_popc) \
+            <= t_ops(rank_ops, rank_popc) else (rank_ops, rank_popc)
+        io = (2 * t0.numel() + 2 * t1.numel() + 2 * self.m["fm_torch"].N12
+              ) * rsz
+        return dict(**self.bound(nbytes + io, ops, popc),
+                    live_ranges=int(live.sum()), scanned_ends=ends.numel())
+
     def stream(self, idx, batches, host_resolve: bool, dfm=None):
         """A fresh pipeline (on dfm, else building the index) streaming
         the batches, launch counts from 0 before it is built: (pipe,
@@ -444,7 +520,7 @@ class Smoke:
             for ln in log.splitlines():
                 # "Compiling entry function '..search_kernelIiE..'": the
                 # kernel and its row type (i: narrow, l: wide)
-                k = re.search(r"([a-z_]+_kernel)I([il])E", ln)
+                k = re.search(r"([a-z_]+\d*_kernel)I([il])E", ln)
                 if "entry function" in ln and k:
                     entry = (f"{k.group(1)} "
                              f"{'narrow' if k.group(2) == 'i' else 'wide'}: ")
@@ -457,9 +533,9 @@ class Smoke:
                   kernel_build_s=round(build_s, 3), ptxas=regs))
 
     def launch_shape(self, kernel: str, wide: bool, n: int) -> dict:
-        """K1's or K3's launch for n lanes or rows: a tile of more than
-        one thread each, and a persistent grid, the resident blocks
-        capped at what n items fill."""
+        """K1's, K3's or K4's launch for n lanes, rows or level-1 ranges:
+        a tile of more than one thread each, and a persistent grid, the
+        resident blocks capped at what n items fill."""
         cfg = self.m["cuda"].persistent_config(kernel, wide, n)
         need = -(-n * cfg["tile"] // cfg["threads"])
         if cfg["tile"] < 2 or cfg["grid"] != min(cfg["resident_blocks"],
@@ -563,7 +639,8 @@ class Smoke:
                      "block")
             shapes["wide" if wide else "narrow"] = dict(
                 search=self.launch_shape("search", wide, 2 * BATCH_READS),
-                resolve=self.launch_shape("resolve", wide, 4 * BATCH_READS))
+                resolve=self.launch_shape("resolve", wide, 4 * BATCH_READS),
+                ftab12=self.launch_shape("ftab12", wide, 4 * fmt.N10))
         emit(dict(phase="kernels", ftab12="equal (narrow, wide)",
                   rank="equal on 65536 pairs (narrow, wide)",
                   resolve="equal on 65536 rows + edges (narrow, wide; "
@@ -970,7 +1047,10 @@ class Smoke:
             ptxas=self.ptxas.get("search", []))
 
         # ---- K5 on that batch's first-pass hit buffers, as the
-        # device-resolve path's dispatch runs it ----
+        # device-resolve path's dispatch runs it: the kernel by CUDA
+        # events (its launches alone, each on a zeroed ticket buffer),
+        # the wrapper by events (back-to-back calls) and by the host
+        # clock (one call to its synchronize) ----
         khits = pipe2.cfg.classifier.khits
         pre = (got[0], got[1], got[3], khits, pipe2.classifier.ihits,
                eng.min_hitlen, eng_mod.presolve_rk(khits))
@@ -978,17 +1058,24 @@ class Smoke:
         want, plain_ms = self.time_host(
             lambda: eng_mod.presolve_rows_plain(*pre))
         err = self.equal("presolve (full batch)", [flat], [want])
-        ms = self.time_cuda(lambda: eng_mod.presolve_rows(*pre), 20)
+        ms = self.presolve_kernel_ms(pre, flat, 20)
+        wrapper_ms = self.time_cuda(lambda: eng_mod.presolve_rows(*pre), 20)
+        _, host_ms = self.time_host(lambda: eng_mod.presolve_rows(*pre))
         M, n = L // 2, 2 * SEARCH_MH
         # hit buffers in, flat rows out; the pick per entry and per mate,
-        # the mate search per flat slot
+        # the index and copy per flat slot
         io = L * SEARCH_MH * (2 * rsz + 4) + flat.numel() * rsz
         ops = (L * SEARCH_MH * PICK_OPS + M * n * math.ceil(math.log2(n))
-               + flat.numel() * (math.ceil(math.log2(M)) + 2))
+               + 2 * flat.numel())
         self.rows["presolve"].update(
             launches=launches2["presolve"], max_abs_err=err, ms=ms,
+            wrapper_ms=wrapper_ms, host_clock_ms=host_ms,
             plain_ms=plain_ms, library_ms=None, mates=M,
-            flat_rows=flat.numel(), **self.bound(io, ops, 0))
+            flat_rows=flat.numel(), launches_per_call=1,
+            mates_per_block=eng_mod.PRESOLVE_MATES_PER_BLOCK,
+            blocks=-(-M // eng_mod.PRESOLVE_MATES_PER_BLOCK),
+            **self.bound(io, ops, 0),
+            ptxas=self.ptxas.get("presolve", []))
 
         # ---- K3 on those flat rows ----
         tidx = fmt.resolve_rows(fm, flat)
@@ -1018,29 +1105,30 @@ class Smoke:
                                hits=[t.clone() for t in got], flat=flat,
                                tidx=tidx)
 
-        # ---- K4 against its plain version ----
+        # ---- K4 against its plain version: its own launch (level 2),
+        # and the whole build (the level-1 glue, K0, K4) ----
         t0v, b0v = fm.ftab_top[:fmt.N10], fm.ftab_bot[:fmt.N10]
         plain = torch.zeros_like(fm.ftab12_rows)
         _, plain_ms = self.time_host(lambda: fmt.ftab12_plain(
             fm.blocks, fm.fchr, fm.zoff, t0v, b0v, plain))
         err = self.equal("ftab12 (full size)", [fm.ftab12_rows], [plain])
+        t1, b1 = fmt.ftab12_level1(fm.blocks, fm.fchr, fm.zoff, t0v, b0v)
         scratch = torch.zeros_like(fm.ftab12_rows)
-        ms = self.time_cuda(lambda: fmt.build_ftab12(
+        ms = self.time_cuda(lambda: fmt.ftab12_level2(
+            fm.blocks, fm.fchr, fm.zoff, t0v, b0v, t1, b1, scratch), 5)
+        self.equal("ftab12 (timed launch)", [scratch], [plain])
+        scratch.zero_()
+        build_ms = self.time_cuda(lambda: fmt.build_ftab12(
             fm.blocks, fm.fchr, fm.zoff, t0v, b0v, scratch), 3)
-        self.equal("ftab12 (timed run)", [scratch], [plain])
-        del scratch
-        stats = {}
-        fmt.ftab12_plain(fm.blocks, fm.fchr, fm.zoff, t0v, b0v, plain,
-                         stats=stats)
-        del plain
-        nbytes, int_ops, popc = self.traffic(fm, stats)
-        del stats
-        # depth-10 ranges in; every depth-12 entry (top, bot) out
-        io = (2 * t0v.numel() + 2 * fmt.N12) * rsz
+        self.equal("ftab12 (timed build)", [scratch], [plain])
+        del scratch, plain
+        k4 = self.ftab12_bound(fm, t0v, b0v, t1, b1)
         self.rows["ftab12"].update(
             launches=launches["ftab12"], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=None,
-            **self.bound(nbytes + io, int_ops, popc))
+            plain_ms=plain_ms, library_ms=None, build_ms=build_ms,
+            **k4, **self.launch_shape("ftab12", fm.wide, 4 * fmt.N10),
+            ptxas=self.ptxas.get("ftab12", []))
+        del t1, b1
 
         # ---- K0 at the main path's size: K4's level 1, LF of both ends
         # of every depth-10 range for each char (8.4M queries) ----
@@ -1064,6 +1152,13 @@ class Smoke:
             plain_ms=plain_ms, library_ms=None, queries=rows1.numel(),
             **self.bound(nbytes + io, int_ops, popc))
         del rows1, chars1
+        # the whole ftab build's bound: K0's level-1 work and K4's, moved
+        # and computed once each
+        r0, r4 = self.rows["rank"], self.rows["ftab12"]
+        b = self.bound(r0["moved_bytes"] + r4["moved_bytes"],
+                       r0["int_ops"] + r4["int_ops"],
+                       r0["popc_ops"] + r4["popc_ops"])
+        r4.update(build_bound_ms=b["bound_ms"], build_bound_by=b["bound_by"])
 
         # ---- K0 at 65,536 random queries ----
         g = np.random.default_rng(11)

@@ -226,3 +226,40 @@ def test_chip_smoke_bound_counts_each_sector_once(indexes, lanes, wide):
     smoke = object.__new__(chip_smoke.Smoke)
     smoke.torch = torch
     assert smoke.traffic(fm, st) == _sectors_brute(fm, st)
+
+
+def test_stats_counters_are_exact_across_threads(indexes):
+    """The --met counters take adds from the main thread and the tail
+    worker outside dev_lock: add_stats holds them under a lock of their
+    own, so 8 threads adding 10,000 times each lose no count."""
+    import sys
+    import threading
+
+    from centrifuge_tpu_torch.classify.engine import BatchSearchEngine
+    eng = BatchSearchEngine(indexes[False, False][1], 22)
+    n_threads, n_adds = 8, 10_000
+    go = threading.Barrier(n_threads)
+
+    def work(k):
+        go.wait()
+        for _ in range(n_adds):
+            eng.add_stats(upload_bytes=k + 1, download_bytes=1,
+                          ext_searches=1, ext_lanes=2)
+
+    threads = [threading.Thread(target=work, args=(k,))
+               for k in range(n_threads)]
+    # switch threads every microsecond, so unguarded adds would interleave
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    assert eng.stats == {
+        "upload_bytes": n_adds * n_threads * (n_threads + 1) // 2,
+        "download_bytes": n_adds * n_threads,
+        "ext_searches": n_adds * n_threads,
+        "ext_lanes": 2 * n_adds * n_threads}

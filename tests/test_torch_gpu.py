@@ -19,6 +19,151 @@ SYNTH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                      "synth")
 
 
+# ---- inputs shared with the CPU twin tests (tests/test_torch_twin.py) ----
+
+def random_hits(M, mh, wide, seed):
+    """Hit buffers [2M, mh] with repeated sizes and lengths (ties of the
+    pick's sort key), empty and unused slots, one-row ranges, sizes past
+    2^18 and past ihits."""
+    rng = np.random.default_rng(seed)
+    L = 2 * M
+    top = rng.integers(0, 1 << 20, (L, mh))
+    size = rng.choice([0, 1, 1, 2, 3, 7, 40, 199, 250, 1 << 19], (L, mh))
+    ln = rng.choice([0, 10, 22, 23, 23, 30, 40, 60], (L, mh))
+    empty = rng.random((L, mh)) < 0.2
+    top[empty] = -1
+    bot = np.where(empty, -1, top + size)
+    dt = np.int64 if wide else np.int32
+    return (torch.from_numpy(top.astype(dt)),
+            torch.from_numpy(bot.astype(dt)),
+            torch.from_numpy(ln.astype(np.int32)))
+
+
+def ftab12_cases(fm, n, rng):
+    """Level-1 ranges (i1, parent non-empty, lt, lb) that each guard of
+    K4 decides: ends in one block row (read once) and in two; the '$'
+    row strictly inside, at the top end and just below the bottom end;
+    ends at a row's first and last base and at the BWT's end; an empty
+    depth-10 parent under a non-empty range; empty and inverted level-1
+    ranges; random ranges. Distinct depth-10 parents."""
+    z = fm.zoff
+    k = (z >> 9) - 3
+    cases = [(True, 512 * k + 3, 512 * k + 200),       # one row
+             (True, 100, 5000),                          # two rows
+             (True, z - 5, z + 3), (True, z - 700, z + 900),  # '$' inside
+             (True, z, z + 1), (True, z - 1, z),         # '$' at an end
+             (True, 512 * k, 512 * k + 511), (True, 512 * k - 1, n),
+             (False, 10, 900), (False, z - 5, z + 3),    # empty parent
+             (True, 700, 700), (True, 900, 800)]         # empty level 1
+    lo = rng.integers(0, n, 400)
+    hi = np.minimum(lo + rng.integers(1, 3000, 400), n)
+    cases += [(True, int(a), int(b)) for a, b in zip(lo, hi)]
+    e10 = rng.choice(1 << 20, len(cases), replace=False)
+    c10 = rng.integers(0, 4, len(cases))
+    return [(int(e | c << 20), p, min(max(lt, 0), n), min(max(lb, 0), n))
+            for (p, lt, lb), e, c in zip(cases, e10, c10)]
+
+
+FTAB12_FILL = -3   # the packed table's words before K4 writes it
+
+
+def ftab12_case_inputs(fm, seed):
+    """K4's inputs for ftab12_cases on fm's index: (t0, b0 [2^20]; t1,
+    b1 [2^22], every other range empty; the packed table expected when
+    it starts filled with FTAB12_FILL: each case's four entries the
+    plain LF of both ends, or (0, 0) under the guards, every other entry
+    (0, 0), columns 32 and up keeping the fill; which cases extend)."""
+    n = fm.bwt_len
+    from centrifuge_tpu_torch.ops.fm_torch import N10
+    from centrifuge_tpu_torch.ops.rank import lf
+    rdt = fm.row_dtype
+    cases = ftab12_cases(fm, n, np.random.default_rng(seed))
+    t0 = torch.zeros(N10, dtype=rdt)
+    b0 = torch.zeros(N10, dtype=rdt)
+    t1 = torch.zeros(4 * N10, dtype=rdt)
+    b1 = torch.zeros(4 * N10, dtype=rdt)
+    items = np.array([c[0] for c in cases], dtype=np.int64)
+    for i1, parent, lt, lb in cases:
+        b0[i1 & (N10 - 1)] = 7 if parent else 3
+        t0[i1 & (N10 - 1)] = 3
+        t1[i1], b1[i1] = lt, lb
+    per = 8 if fm.wide else 16
+    want = torch.full(((1 << 24) // per, fm.blocks.shape[1]), FTAB12_FILL,
+                      dtype=torch.int32)
+    want[:, :32] = 0
+    it = torch.from_numpy(items)
+    lt = t1[it].to(torch.int64)
+    lb = b1[it].to(torch.int64)
+    live = (b0[it & (N10 - 1)] > t0[it & (N10 - 1)]) & (lb > lt)
+    blocks, fchr = fm.blocks.cpu(), fm.fchr.cpu()
+    lo32 = np.uint64(0xFFFFFFFF)
+    for c11 in range(4):
+        ch = torch.full((len(cases),), c11, dtype=torch.int32)
+        top = torch.where(live, lf(blocks, fchr, fm.zoff, lt.to(rdt), ch
+                                   ).to(torch.int64), 0)
+        bot = torch.where(live, lf(blocks, fchr, fm.zoff, lb.to(rdt), ch
+                                   ).to(torch.int64), 0)
+        t, b = top.numpy().astype(np.uint64), bot.numpy().astype(np.uint64)
+        words = np.stack([t & lo32, t >> np.uint64(32), b & lo32,
+                          b >> np.uint64(32)] if fm.wide
+                         else [t & lo32, b & lo32],
+                         axis=1).astype(np.uint32).view(np.int32)
+        idx = it | (c11 << 22)
+        rows, col = idx // per, (idx % per) * (32 // per)
+        for j in range(32 // per):
+            want[rows, col + j] = torch.from_numpy(words[:, j].copy())
+    return t0, b0, t1, b1, want, live
+
+
+def mate_hits(mates, mh, wide):
+    """Hit buffers [2M, mh] from per-mate lists of (strand, slot, top,
+    size, len); every other slot empty (-1, -1, 0)."""
+    L = 2 * len(mates)
+    top = np.full((L, mh), -1, np.int64)
+    bot = np.full((L, mh), -1, np.int64)
+    ln = np.zeros((L, mh), np.int32)
+    for m, hits in enumerate(mates):
+        for strand, slot, t, size, length in hits:
+            top[2 * m + strand, slot] = t
+            bot[2 * m + strand, slot] = t + size
+            ln[2 * m + strand, slot] = length
+    dt = np.int64 if wide else np.int32
+    return (torch.from_numpy(top.astype(dt)),
+            torch.from_numpy(bot.astype(dt)), torch.from_numpy(ln))
+
+
+def presolve_case(name, wide):
+    """(hits, khits, rk) of a K5 case. `ties`: equal keys on both strands
+    of equal score, fw first; `mghs`: a third hit past the
+    max_genome_hit_size budget; `clip`: a hit of more rows than rk
+    before a mate with rows; `past_n`: more rows than the 4 M flat
+    slots, so rows drop and no zero tail is left; random hits with M not
+    a multiple of the block's 32 mates, and M = 1, at mh 16, 4 and 1."""
+    if name == "ties":
+        mates = [[(0, 0, 100, 3, 30), (1, 2, 900, 3, 30), (0, 1, 50, 2, 40),
+                  (1, 0, 700, 2, 40)], [], [], []]
+        return mate_hits(mates, 4, wide), 5, 16
+    if name == "mghs":
+        mates = [[(0, 0, 100, 3, 30), (0, 1, 200, 3, 29), (0, 2, 300, 3, 28)],
+                 [(1, 3, 400, 2, 50)], [], []]
+        return mate_hits(mates, 4, wide), 5, 16
+    if name == "clip":
+        mates = [[(0, 0, 1000, 150, 60)], [], [(0, 0, 5000, 3, 30)]] \
+            + [[]] * 37
+        return mate_hits(mates, 16, wide), 16, 64
+    if name == "past_n":
+        mates = [[(0, s, 1000 * (s + 1) + 10 * m, 7, 30 + s) for s in range(3)]
+                 for m in range(40)]
+        return mate_hits(mates, 4, wide), 16, 64
+    M, mh = {"mh16_m45": (45, 16), "mh4_m77": (77, 4), "mh1_m64": (64, 1),
+             "mh16_m1": (1, 16)}[name]
+    return random_hits(M, mh, wide, seed=M), 16, 64
+
+
+PRESOLVE_CASES = ["ties", "mghs", "clip", "past_n", "mh16_m45", "mh4_m77",
+                  "mh1_m64", "mh16_m1"]
+
+
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
@@ -94,15 +239,67 @@ def test_kernels_match_plain(cuda, port_index, wide):
     assert _cuda.persistent_config("search", wide, 2)["grid"] == 1
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_ftab12_kernel_cases_match_plain(cuda, port_index, wide):
+    """K4's launch on the chosen level-1 ranges of ftab12_cases (ends in
+    one row and two, the '$' row inside and at an end, empty parents,
+    empty level-1 ranges): the table equals the plain LF's, every other
+    entry (0, 0), columns 32 and up untouched; one launch, no K0; the
+    launch shape a tile of more than one thread a range on a persistent
+    grid."""
+    from centrifuge_tpu_torch import _cuda
+    from centrifuge_tpu_torch.ops.fm_torch import (N10, DeviceFMIndex,
+                                                   ftab12_level2)
+    fm = DeviceFMIndex.build(port_index, device=cuda, wide=wide,
+                             deep_ftab=False)
+    t0, b0, t1, b1, want, live = ftab12_case_inputs(fm, 61)
+    out = torch.full_like(want, FTAB12_FILL).to(cuda)
+    _cuda.reset_launches()
+    ftab12_level2(fm.blocks, fm.fchr, fm.zoff, t0.to(cuda), b0.to(cuda),
+                  t1.to(cuda), b1.to(cuda), out)
+    assert _cuda.LAUNCHES["ftab12"] == 1 and _cuda.LAUNCHES["rank"] == 0
+    assert torch.equal(out.cpu(), want)
+    assert bool(live.any()) and not bool(live.all())
+    cfg = _cuda.persistent_config("ftab12", wide, 4 * N10)
+    assert cfg["tile"] > 1
+    assert cfg["grid"] == min(cfg["resident_blocks"],
+                              -(-4 * N10 * cfg["tile"] // cfg["threads"]))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_presolve_kernel_cases_match_plain(cuda, wide):
+    """K5's one launch (a warp a mate, the block scan, the look-back over
+    blocks, the scatter and the zero tail) on the cases of
+    presolve_case (ties across strands, the mghs cut, the clip to rk,
+    more rows than slots, mh 16, 4 and 1, M not a multiple of 32, M = 1)
+    and on 32,768 and 100,000 mates of random hits (more blocks than the
+    card keeps resident): the flat rows equal the plain pick and
+    compaction's; one launch a call."""
+    from centrifuge_tpu_torch import _cuda
+    from centrifuge_tpu_torch.classify.engine import (presolve_rows,
+                                                      presolve_rows_plain)
+    cases = [presolve_case(c, wide) for c in PRESOLVE_CASES]
+    cases += [(random_hits(32768, 16, wide, 9), 5, 16),
+              (random_hits(100_000, 16, wide, 10), 16, 64)]
+    _cuda.reset_launches()
+    for hits, khits, rk in cases:
+        args = (khits, max(khits, 5) * 40, 22, rk)
+        got = presolve_rows(*(h.to(cuda) for h in hits), *args)
+        assert torch.equal(got.cpu(), presolve_rows_plain(*hits, *args))
+    assert _cuda.LAUNCHES["presolve"] == len(cases)
+
+
 def test_misaligned_tables_raise(cuda, port_index):
-    """K1 and K3 read the block and ftab tables in 16-byte chunks: a
-    table that is a sliced view off that alignment raises before any
-    launch, and the kernel never reads it."""
+    """K1, K3 and K4 read the block and ftab tables in 16-byte chunks (K4
+    stores whole entries): a table that is a sliced view off that
+    alignment raises before any launch, and the kernel never reads it."""
     import dataclasses
 
     from centrifuge_tpu_torch import _cuda
     from centrifuge_tpu_torch.classify.engine import search_lanes
-    from centrifuge_tpu_torch.ops.fm_torch import DeviceFMIndex, resolve_rows
+    from centrifuge_tpu_torch.ops.fm_torch import (N10, DeviceFMIndex,
+                                                   ftab12_level2,
+                                                   resolve_rows)
     fm = DeviceFMIndex.build(port_index, device=cuda, deep_ftab=True)
 
     def shifted(t):   # the same rows, 4 bytes off the table's alignment
@@ -126,7 +323,17 @@ def test_misaligned_tables_raise(cuda, port_index):
     with pytest.raises(ValueError, match="16-byte aligned"):
         resolve_rows(dataclasses.replace(fm, blocks=shifted(fm.blocks)),
                      rows)
+    # K4 reads the block table in 16-byte chunks and stores whole entries
+    lvl = [torch.zeros(n, dtype=fm.row_dtype, device=cuda)
+           for n in (N10, N10, 4 * N10, 4 * N10)]
+    for bad_blocks, bad_out in ((True, False), (False, True)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ftab12_level2(shifted(fm.blocks) if bad_blocks else fm.blocks,
+                          fm.fchr, fm.zoff, *lvl,
+                          shifted(fm.ftab12_rows) if bad_out
+                          else fm.ftab12_rows.clone())
     assert _cuda.LAUNCHES["search"] == 0 and _cuda.LAUNCHES["resolve"] == 0
+    assert _cuda.LAUNCHES["ftab12"] == 0
 
 
 def test_wrapper_refuses_mixed_devices(cuda, port_index):

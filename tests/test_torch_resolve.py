@@ -23,7 +23,7 @@ import torch
 
 from conftest import fixture_path
 from test_torch_twin import (build_twin, one_torch_thread,  # noqa: F401
-                             random_hits, twin_pick, twin_resolve)
+                             random_hits, twin_presolve, twin_resolve)
 
 SYNTH = fixture_path("synth")
 N_DISPATCH_READS = 64   # reads_n.fq: read 63's rc lane emits 17 hits
@@ -175,7 +175,8 @@ def test_pick_matches_jax(first_pass_hits, twin, wide, khits):
     """The per-mate pick against the JAX _presolve_pick_rows, jitted
     alone, on the first-pass hits of synth lanes (reads_n.fq has a lane
     past 16 hits) and on random hit buffers of the same shape; the
-    compaction against the JAX dispatch's."""
+    compaction, and K5's warp pick and scatter run by the twin, against
+    the JAX dispatch's flat rows."""
     from centrifuge_tpu.classify.engine import _presolve_pick_rows
     from centrifuge_tpu_torch.classify.engine import (
         presolve_compact_plain, presolve_pick_rows_plain, presolve_rk)
@@ -197,9 +198,9 @@ def test_pick_matches_jax(first_pass_hits, twin, wide, khits):
         np.testing.assert_array_equal(rows.numpy(), np.asarray(want_rows))
         np.testing.assert_array_equal(nrows.numpy(), np.asarray(want_n))
         assert int(nrows.max()) > 1
-        t_rows, t_n = twin_pick(twin, h_top, h_bot, h_len, khits, ihits, 22,
-                                rk)
-        assert torch.equal(t_rows, rows) and torch.equal(t_n, nrows)
+        t_flat, t_n = twin_presolve(twin, h_top, h_bot, h_len, khits, ihits,
+                                    22, rk)
+        assert torch.equal(t_n, nrows)
         # the dispatch's compaction: cumsum, searchsorted, gather
         M = rows.shape[0]
         doffs = jnp.cumsum(want_n) - want_n
@@ -212,6 +213,8 @@ def test_pick_matches_jax(first_pass_hits, twin, wide, khits):
         np.testing.assert_array_equal(
             presolve_compact_plain(rows, nrows).numpy(),
             np.asarray(want_flat))
+        # K5's warp pick and scatter (the twin) give the same flat rows
+        np.testing.assert_array_equal(t_flat.numpy(), np.asarray(want_flat))
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,9 @@
 """The CUDA kernels' per-lane arithmetic (csrc/fm_common.cuh), compiled
 for the host with g++ (csrc/cpu_twin.cpp), against the port's plain
-PyTorch versions: rank, the depth-12 ftab, the SA resolve walk and its
-exits, the presolve pick, and K6's search and walk over BWT-range shards
+PyTorch versions: rank, the depth-12 ftab (K4's tile scan of a level-1
+range), the SA resolve walk and its exits, the presolve (K5's warp pick
+and scatter, the warp emulated serially), and K6's search and walk over
+BWT-range shards
 (the same lane loops over the shard reader that csrc/sharded.cu launches)
 here, the search in test_torch_engine.py.
 Nothing else on a machine without nvcc compiles the code the card runs.
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from conftest import fixture_path
+from test_torch_gpu import (FTAB12_FILL, PRESOLVE_CASES,  # noqa: F401
+                            ftab12_case_inputs, presolve_case, random_hits)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "centrifuge_tpu_torch", "csrc")
@@ -25,10 +29,11 @@ _SIGS = {
     "rank": [_P, _P, _I64, _P, _P, _P, _I64, _I32, _P, _P],
     "search": [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
                _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32],
-    "ftab12": [_P, _P, _I64, _P, _P, _P, _P, _P],
+    "ftab12": [_P, _P, _I64, _P, _P, _P, _P, _P, _I32],
     "resolve": [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I32,
                 _P, _P, _I64, _I32],
-    "pick": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P],
+    "presolve": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _I64,
+                 _P],
     "shard_search": [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
                      _I32, _I32, _I32],
     "shard_resolve": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _I64],
@@ -59,9 +64,9 @@ def build_twin(out_dir: str):
             fn = getattr(lib, f"twin_{name}_{kind}")
             fn.argtypes = sig
             # the search, walk and K6 twin loops return the longest
-            # lane's count of table reads, the rank 0; -1 for a group
-            # other than 1, 2, 4 or 8
-            fn.restype = None if name in ("ftab12", "pick") else _I64
+            # lane's count of table reads, the rank and ftab12 0; -1 for
+            # a group other than 1, 2, 4 or 8
+            fn.restype = None if name == "presolve" else _I64
     return lib
 
 
@@ -110,35 +115,25 @@ def twin_resolve(lib, fm, rows, max_steps, walk=True, group=1):
     return out
 
 
-def twin_pick(lib, h_top, h_bot, h_len, khits, ihits, min_hitlen, rk):
-    """The K5 pick over all mates, on the host; same outputs as
-    classify/engine.presolve_pick_rows_plain."""
+def twin_presolve(lib, h_top, h_bot, h_len, khits, ihits, min_hitlen, rk,
+                  fill=-7):
+    """K5 on the host as its kernel runs it (blocks of 32 mates, a warp a
+    mate emulated serially, the scan and the scatter, the zero tail):
+    (flat rows [4 M], nrows [M]); the same flat rows as
+    classify/engine.presolve_rows_plain. The slots start as `fill`, so a
+    slot left unwritten shows, and M * rk more slots past the 4 M must
+    keep it: nothing is written past the flat rows."""
     L, mh = h_top.shape
-    rows = torch.empty((L // 2, rk), dtype=h_top.dtype)
-    nrows = torch.empty(L // 2, dtype=torch.int32)
-    fn = lib.twin_pick_wide if h_top.dtype == torch.int64 \
-        else lib.twin_pick_narrow
-    fn(ptr(h_top), ptr(h_bot), ptr(h_len), L // 2, mh, khits, ihits,
-       min_hitlen, rk, ptr(rows), ptr(nrows))
-    return rows, nrows
-
-
-def random_hits(M, mh, wide, seed):
-    """Hit buffers [2M, mh] with repeated sizes and lengths (ties of the
-    pick's sort key), empty and unused slots, one-row ranges, sizes past
-    2^18 and past ihits."""
-    rng = np.random.default_rng(seed)
-    L = 2 * M
-    top = rng.integers(0, 1 << 20, (L, mh))
-    size = rng.choice([0, 1, 1, 2, 3, 7, 40, 199, 250, 1 << 19], (L, mh))
-    ln = rng.choice([0, 10, 22, 23, 23, 30, 40, 60], (L, mh))
-    empty = rng.random((L, mh)) < 0.2
-    top[empty] = -1
-    bot = np.where(empty, -1, top + size)
-    dt = np.int64 if wide else np.int32
-    return (torch.from_numpy(top.astype(dt)),
-            torch.from_numpy(bot.astype(dt)),
-            torch.from_numpy(ln.astype(np.int32)))
+    M = L // 2
+    n = 4 * M
+    flat = torch.full((n + M * rk,), fill, dtype=h_top.dtype)
+    nrows = torch.full((M,), fill, dtype=torch.int32)
+    fn = lib.twin_presolve_wide if h_top.dtype == torch.int64 \
+        else lib.twin_presolve_narrow
+    fn(ptr(h_top), ptr(h_bot), ptr(h_len), M, mh, khits, ihits, min_hitlen,
+       rk, ptr(flat), n, ptr(nrows))
+    assert bool((flat[n:] == fill).all()), "written past the flat rows"
+    return flat[:n], nrows
 
 
 @pytest.fixture(scope="module")
@@ -252,25 +247,58 @@ def test_twin_row_scan_matches_plain(twin, port_index, wide, group):
                                        at.to(torch.int32)).to(rows.dtype))
 
 
+# K4's tile size on the card (csrc/ftab12.cu kTile)
+FTAB12_TILE = 4
+
+
+def twin_ftab12(lib, fm, t0, b0, t1, b1, out, group=1):
+    """K4's 2^22 level-1 ranges (fm_common.cuh ftab12_range) on the host,
+    run by the one-thread group of `group` parts, written into `out` in
+    place."""
+    fn = lib.twin_ftab12_wide if fm.wide else lib.twin_ftab12_narrow
+    assert fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(t0), ptr(b0),
+              ptr(t1), ptr(b1), ptr(out), group) == 0
+
+
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
 def test_twin_ftab12_matches_plain(twin, port_index, wide):
-    from centrifuge_tpu_torch.ops.fm_torch import N10, DeviceFMIndex
-    from centrifuge_tpu_torch.ops.rank import lf
+    """Every level-1 range of the synth index through K4's tile scan at
+    the card's tile size: the whole packed table equals the plain
+    build's (which holds empty parents and empty level-1 ranges)."""
+    from centrifuge_tpu_torch.ops.fm_torch import (N10, DeviceFMIndex,
+                                                   ftab12_level1)
     fm = DeviceFMIndex.build(port_index, device="cpu", wide=wide,
                              deep_ftab=True)
     t0, b0 = fm.ftab_top[:N10].contiguous(), fm.ftab_bot[:N10].contiguous()
     # level 1 exactly as build_ftab12 feeds the kernel: LF of both range
     # ends for every (e10, c10), empty parents included
-    rows1 = torch.cat([t0.repeat(4), b0.repeat(4)])
-    chars1 = torch.arange(4, dtype=torch.int32).repeat_interleave(
-        N10).repeat(2)
-    l1 = lf(fm.blocks, fm.fchr, fm.zoff, rows1, chars1)
-    t1, b1 = l1[: 4 * N10].contiguous(), l1[4 * N10:].contiguous()
+    t1, b1 = ftab12_level1(fm.blocks, fm.fchr, fm.zoff, t0, b0)
+    assert bool((b0 <= t0).any()) and bool(((b1 <= t1) & (
+        b0 > t0).repeat(4)).any())
     out = torch.zeros_like(fm.ftab12_rows)
-    fn = twin.twin_ftab12_wide if wide else twin.twin_ftab12_narrow
-    fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(t0), ptr(b0), ptr(t1),
-       ptr(b1), ptr(out))
+    twin_ftab12(twin, fm, t0, b0, t1, b1, out, group=FTAB12_TILE)
     assert torch.equal(out, fm.ftab12_rows)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_twin_ftab12_tile_scan_cases(twin, port_index, wide, group):
+    """K4's tile scan of chosen level-1 ranges (test_torch_gpu.py
+    ftab12_cases: ends in one row and two, the '$' row, the guards), its
+    G chunk parts summed as a tile sums them and its four stores split
+    over the G threads: each range's four entries equal the plain LF of
+    both ends (or (0, 0) under the guards), every other range's are (0,
+    0), and columns 32-35 (narrow) and 32-39 (wide) of every row keep
+    their words."""
+    from centrifuge_tpu_torch.ops.fm_torch import DeviceFMIndex
+    fm = DeviceFMIndex.build(port_index, device="cpu", wide=wide,
+                             deep_ftab=False)
+    t0, b0, t1, b1, want, live = ftab12_case_inputs(fm, 60 + group)
+    out = torch.full_like(want, FTAB12_FILL)
+    twin_ftab12(twin, fm, t0, b0, t1, b1, out, group)
+    assert torch.equal(out, want)
+    # the guards store (0, 0) for some of the cases, not all
+    assert bool(live.any()) and not bool(live.all())
 
 
 @pytest.mark.parametrize("wide,group", GROUP_CASES, ids=GROUP_IDS)
@@ -304,14 +332,47 @@ def test_twin_resolve_matches_plain(twin, port_index, wide, group):
 @pytest.mark.parametrize("khits", [5, 16])
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
 def test_twin_pick_matches_plain(twin, wide, khits):
+    """K5 (the warp pick, the block scan and the scatter) on random hit
+    buffers of 512 mates: the flat rows equal the plain pick and
+    compaction's, and each mate's count the plain pick's."""
     from centrifuge_tpu_torch.classify.engine import (
-        presolve_pick_rows_plain, presolve_rk)
+        presolve_pick_rows_plain, presolve_rk, presolve_rows_plain)
     hits = random_hits(512, 16, wide, seed=khits)
     args = (khits, max(khits, 5) * 40, 22, presolve_rk(khits))
-    rows, nrows = presolve_pick_rows_plain(*hits, *args)
-    t_rows, t_n = twin_pick(twin, *hits, *args)
-    assert torch.equal(t_rows, rows) and torch.equal(t_n, nrows)
+    _, nrows = presolve_pick_rows_plain(*hits, *args)
+    flat, t_n = twin_presolve(twin, *hits, *args)
+    assert torch.equal(flat, presolve_rows_plain(*hits, *args))
+    assert torch.equal(t_n, nrows)
     assert int(nrows.min()) < int(nrows.max())
+
+
+@pytest.mark.parametrize("case", PRESOLVE_CASES)
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_twin_presolve_cases(twin, wide, case):
+    """K5's warp pick and fused scan-and-scatter, the warp emulated
+    serially and the writes made tail first and then from the last mate
+    to the first (so a slot written twice shows), against the plain pick
+    and compaction: the flat rows, each mate's count, no slot left
+    unwritten and none written past the flat rows."""
+    from centrifuge_tpu_torch.classify.engine import (
+        presolve_pick_rows_plain, presolve_rows_plain)
+    hits, khits, rk = presolve_case(case, wide)
+    args = (khits, max(khits, 5) * 40, 22, rk)
+    _, nrows = presolve_pick_rows_plain(*hits, *args)
+    flat, t_n = twin_presolve(twin, *hits, *args)
+    assert torch.equal(t_n, nrows)
+    assert torch.equal(flat, presolve_rows_plain(*hits, *args))
+    total = int(nrows.sum())
+    if case == "ties":      # fw 50, rc 700, fw 100; rc 900 past mghs
+        assert flat[:7].tolist() == [50, 51, 700, 701, 100, 101, 102]
+    if case == "mghs":
+        assert nrows.tolist() == [6, 2, 0, 0]
+    if case == "clip":
+        assert nrows.tolist()[:3] == [64, 0, 3] and total < flat.numel()
+    if case == "past_n":    # rows dropped, no zero tail
+        assert total > flat.numel() and bool((flat != 0).all())
+    if case in ("ties", "mghs", "clip"):     # a zero tail
+        assert bool((flat[total:] == 0).all()) and total < flat.numel()
 
 
 def twin_shard_search(lib, index, reads, lengths, start, mh, min_hitlen,

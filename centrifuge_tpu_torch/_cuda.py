@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes as C
 import hashlib
 import os
+import re
 import subprocess
 import threading
 
@@ -27,6 +28,7 @@ HEADER = "fm_common.cuh"
 
 _P, _I64, _I32 = C.c_void_p, C.c_int64, C.c_int32
 _RANK = [_P, _P, _I64, _P, _P, _P, _I64, _P]
+_LEVEL1 = [_P, _P, _I64, _P, _P, _P, _P, _I64, _P]
 _SEARCH = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
            _I64, _I32, _I32, _I32, _I32, _I32, _P, _P]
 _FTAB12 = [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P]
@@ -39,7 +41,9 @@ _SH_SEARCH = [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
               _I32, _I32, _P]
 _SH_RESOLVE = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _I64, _P]
 SIGNATURES = {
-    "rank": {"fm_rank_narrow": _RANK, "fm_rank_wide": _RANK},
+    "rank": {"fm_rank_narrow": _RANK, "fm_rank_wide": _RANK,
+             "fm_lf_level1_narrow": _LEVEL1, "fm_lf_level1_wide": _LEVEL1,
+             "fm_rank_config": _CONFIG, "fm_lf_level1_config": _CONFIG},
     "search": {"fm_search_narrow": _SEARCH, "fm_search_wide": _SEARCH,
                "fm_search_config": _CONFIG},
     "ftab12": {"fm_ftab12_narrow": _FTAB12, "fm_ftab12_wide": _FTAB12,
@@ -55,7 +59,8 @@ SIGNATURES = {
                 "fm_shard_enable_peer": [_I32, _I32]},
 }
 
-# one count per kernel of the port; csrc/sharded.cu holds two, K6's
+# one count per kernel of the port; csrc/rank.cu's two entries (K0's
+# rank and its level 1) count as "rank"; csrc/sharded.cu holds two, K6's
 # search and its resolve walk (one launch per dp row each)
 KERNELS = ("rank", "search", "ftab12", "resolve", "presolve",
            "sharded_search", "sharded_resolve")
@@ -120,6 +125,20 @@ def build_all() -> dict:
     return logs
 
 
+def ptxas_report(log: str) -> list:
+    """Each kernel's registers and spill from an nvcc -Xptxas=-v log, as
+    "<kernel> narrow|wide: ..." lines (the row type of its template: i
+    narrow, l wide)."""
+    out, entry = [], ""
+    for ln in log.splitlines():
+        k = re.search(r"([a-z_]+\d*_kernel)I([il])E", ln)
+        if "entry function" in ln and k:
+            entry = f"{k.group(1)} {'narrow' if k.group(2) == 'i' else 'wide'}"
+        elif "registers" in ln or "spill" in ln:
+            out.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def lib(name: str):
     """The loaded library of csrc/<name>.cu, built on first use."""
     with _LOCK:
@@ -145,20 +164,24 @@ def stream_ptr(device) -> int:
 
 
 # K1, K3 and K4 (csrc/search.cu, csrc/resolve.cu, csrc/ftab12.cu) take
-# their lanes, rows or level-1 ranges from an int32 work counter
+# their lanes, rows or level-1 ranges from an int32 work counter; K0
+# (csrc/rank.cu) takes as many items a launch
 MAX_ITEMS = 1 << 30
 CONFIG_KEYS = ("tile", "threads", "grid", "registers", "resident_blocks")
 
 
-def persistent_config(kernel: str, wide: bool, n: int) -> dict:
-    """The launch shape of K1 ("search"), K3 ("resolve") or K4
-    ("ftab12", whose n is fixed: the 2^22 level-1 ranges) for n lanes,
-    rows or ranges on the current card: threads per item (the tile),
-    threads per block, the grid, registers per thread (ptxas's count)
-    and the resident grid it is capped at."""
+def persistent_config(kernel: str, wide: bool, n: int,
+                      entry: str = None) -> dict:
+    """The launch shape of K1 ("search"), K3 ("resolve"), K4 ("ftab12",
+    whose n is fixed: the 2^22 level-1 ranges) or K0 ("rank"; entry
+    "lf_level1" for its level 1) for n lanes, rows, ranges or queries on
+    the current card: threads per item (the tile), threads per block,
+    the grid, registers per thread (ptxas's count) and the resident grid
+    it is capped at."""
     out = (C.c_int32 * len(CONFIG_KEYS))()
-    check(getattr(lib(kernel), f"fm_{kernel}_config")(int(wide), n, out),
-          f"{kernel} config")
+    name = entry or kernel
+    check(getattr(lib(kernel), f"fm_{name}_config")(int(wide), n, out),
+          f"{name} config")
     return dict(zip(CONFIG_KEYS, out))
 
 

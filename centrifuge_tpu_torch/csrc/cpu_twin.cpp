@@ -4,10 +4,11 @@
 // on a machine without a CUDA compiler. The port itself never loads it:
 // on the CPU its wrappers run the plain versions.
 //
-// The search, the walk, the row scan and the depth-12 ftab run under
-// fm::Serial<G>, the one-thread group that computes the G parts of every
-// row scan in a loop and sums them: the part functions that a tile of G
-// threads runs on the card (K1, K3, K4), and at G = 1 K6's group.
+// The rank, the search, the walk, the row scan, the level 1 and the
+// depth-12 ftab run under fm::Serial<G>, the one-thread group that
+// computes the G parts of every row scan in a loop and sums them: the
+// part functions that a tile of G threads runs on the card (K0, K1, K3,
+// K4), and at G = 1 K6's group.
 // `group` selects G (1, 2, 4 or 8); an entry returns -1 for any other.
 // The presolve runs its warp's 32 lanes as fm::Serial<32>.
 //
@@ -37,11 +38,11 @@ int64_t with_group(int32_t group, F&& f) {
   }
 }
 
-// group 0: K0's rank (fm::rank) of each (row, char). Else the group's
-// row scan: the rank of each (row, char) into out (char -1: of BWT[row])
-// and BWT[row] into codes, and into pair_out, where every char is 0..3,
-// the two ranks of each pair of queries (2m, 2m + 1), both of char 2m,
-// from one pair scan.
+// The group's row scan (K0's query, and K1's and K3's step): the rank of
+// each (row, char) into out (char -1: of BWT[row]; plus fchr of the char
+// when fchr is given) and BWT[row] into codes, and into pair_out, where
+// every char is 0..3, the two ranks of each pair of queries (2m, 2m + 1),
+// both of char 2m, from one pair scan.
 template <typename R>
 int64_t rank_all(const void* blocks, const void* fchr, int64_t zoff,
                  const void* rows, const void* chars, void* out, int64_t n,
@@ -50,13 +51,6 @@ int64_t rank_all(const void* blocks, const void* fchr, int64_t zoff,
   const int32_t* cc = (const int32_t*)chars;
   const R* fc = (const R*)fchr;
   R* o = (R*)out;
-  if (group == 0) {
-    for (int64_t i = 0; i < n; ++i) {
-      R r = fm::rank<R>((const uint32_t*)blocks, (R)zoff, rr[i], cc[i]);
-      o[i] = fc != nullptr ? fc[cc[i]] + r : r;
-    }
-    return 0;
-  }
   fm::FlatTables<R> t{};
   t.blocks = (const uint32_t*)blocks;
   t.zoff = (R)zoff;
@@ -189,6 +183,30 @@ int64_t ftab12_all(const void* blocks, const void* fchr, int64_t zoff,
   });
 }
 
+// K0's level 1 over n depth-10 ranges (fm_common.cuh scan_ends), run by
+// the group of `group` parts: t1/b1[e + c * n] = LF(t0[e], c) /
+// LF(b0[e], c), or 0 where the range is empty.
+template <typename R>
+int64_t level1_all(const void* blocks, const void* fchr, int64_t zoff,
+                   const void* t0, const void* b0, void* t1, void* b1,
+                   int64_t n, int32_t group) {
+  const R* f = (const R*)fchr;
+  const fm::Fc4<R> fc{{f[0], f[1], f[2], f[3]}};
+  const R *pt = (const R*)t0, *pb = (const R*)b0;
+  R *ot = (R*)t1, *ob = (R*)b1;
+  return with_group(group, [&](auto g) -> int64_t {
+    for (int64_t e = 0; e < n; ++e) {
+      const fm::EndsLF<R> x =
+          fm::scan_ends<R>((const uint32_t*)blocks, g, pt[e], pb[e]);
+      for (int c = 0; c < 4; ++c) {
+        ot[e + c * n] = x.top(fc, (R)zoff, c);
+        ob[e + c * n] = x.bot(fc, (R)zoff, c);
+      }
+    }
+    return 0;
+  });
+}
+
 // the longest walk's rounds of table reads
 template <typename R>
 int64_t resolve_all(const void* blocks, const void* fchr, int64_t zoff,
@@ -314,6 +332,11 @@ int64_t shard_resolve_all(const int64_t* desc, const void* brows,
                          row_bytes, lengths, start, h_top, h_bot, h_off,   \
                          h_len, nhits, sums, L, mh, min_hitlen, increment, \
                          first_hit_only, deep, group);                     \
+  }                                                                        \
+  extern "C" int64_t twin_level1_##KIND(                                   \
+      const void* blocks, const void* fchr, int64_t zoff, const void* t0,  \
+      const void* b0, void* t1, void* b1, int64_t n, int32_t group) {      \
+    return level1_all<R>(blocks, fchr, zoff, t0, b0, t1, b1, n, group);   \
   }                                                                        \
   extern "C" int64_t twin_ftab12_##KIND(                                   \
       const void* blocks, const void* fchr, int64_t zoff, const void* t0,  \

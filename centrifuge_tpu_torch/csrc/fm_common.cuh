@@ -13,8 +13,10 @@
 // The group is the threads that run one lane: Tile<G>, G threads of a
 // warp that split each block-row scan into 16-byte chunks (K1, K3), or
 // Serial<G>, one thread computing the same G parts in a loop (K6 at
-// G = 1, and the host twin at every G). K4 scans a level-1 range
-// (ftab12_range) under the same groups, and K5 picks a mate's rows
+// G = 1, and the host twin at every G). K0 ranks each query with the
+// same row scan (scan_rank); its level-1 entry and K4 scan both ends of
+// a range once for every code (scan_ends, ftab12_range) under the same
+// groups, and K5 picks a mate's rows
 // (mate_rows) under a group of 32 lanes: Tile<32>, a warp, on the card,
 // Serial<32> in the twin. Tables are read through the read-only path
 // (ldg).
@@ -122,14 +124,6 @@ FM_HD uint32_t pick(const U4& q, int i) {
   return i == 0 ? q.v[0] : i == 1 ? q.v[1] : i == 2 ? q.v[2] : q.v[3];
 }
 
-FM_HD int popc32(uint32_t x) {
-#if defined(__CUDA_ARCH__)
-  return __popc(x);
-#else
-  return __builtin_popcount(x);
-#endif
-}
-
 FM_HD int popc64(uint64_t x) {
 #if defined(__CUDA_ARCH__)
   return __popcll(x);
@@ -145,54 +139,6 @@ FM_HD int ctz32(uint32_t x) {
 #else
   return __builtin_ctz(x);
 #endif
-}
-
-// Bases equal to c among the first nvalid (0..16) bases of a word. The
-// word XOR the char's repeated pattern turns matching bases into 00; the
-// AND of the complement's two bit planes leaves one marker bit per base.
-// The mask never shifts by 32 (undefined in C++ and CUDA).
-FM_HD int count_in_word(uint32_t word, uint32_t pattern, int nvalid) {
-  uint32_t x = ~(word ^ pattern);
-  uint32_t y = x & (x >> 1) & 0x55555555u;
-  uint32_t mask =
-      nvalid >= 16 ? 0xFFFFFFFFu : ((1u << (2 * (nvalid & 15))) - 1u);
-  return popc32(y & mask);
-}
-
-template <typename R>
-FM_HD R occ_at(const uint32_t* row, int c) {
-  if constexpr (sizeof(R) == 8) {
-    return (R)(((uint64_t)ldg(row + 4 + c) << 32) | (uint64_t)ldg(row + c));
-  } else {
-    return (R)ldg(row + c);
-  }
-}
-
-// rank_c(r): occurrences of c in bwt[0:r], '$' excluded, from the block
-// row that holds r (row = r's block, wherever the table holding it lies).
-template <typename R>
-FM_HD R rank_in_row(const uint32_t* row, R zoff, R r, int c) {
-  const uint32_t* words = row + Geo<R>::kWordOff;
-  const int within = (int)(r & 511);
-  const uint32_t pattern = (uint32_t)c * 0x55555555u;
-  const int full = within >> 4;
-  int cnt = 0;
-  for (int w = 0; w < full; ++w)
-    cnt += count_in_word(ldg(words + w), pattern, 16);
-  if (within & 15)
-    cnt += count_in_word(ldg(words + full), pattern, within & 15);
-  return occ_at<R>(row, c) + (R)cnt - (R)((c == 0 && zoff < r) ? 1 : 0);
-}
-
-template <typename R>
-FM_HD R rank(const uint32_t* blocks, R zoff, R r, int c) {
-  return rank_in_row<R>(blocks + (int64_t)(r >> 9) * Geo<R>::kWidth, zoff, r,
-                        c);
-}
-
-template <typename R>
-FM_HD R lf(const uint32_t* blocks, const R* fchr, R zoff, R r, int c) {
-  return fchr[c] + rank<R>(blocks, zoff, r, c);
 }
 
 template <typename R>
@@ -512,6 +458,17 @@ struct Tile {
   }
 };
 
+// The group of G threads that runs one item on the card: G threads of a
+// warp, or at G = 1 the one-thread group.
+template <int G>
+__device__ __forceinline__ auto card_group() {
+  if constexpr (G == 1) {
+    return Serial<1>{};
+  } else {
+    return Tile<G>{cg::tiled_partition<G>(cg::this_thread_block())};
+  }
+}
+
 // The grid of a persistent kernel that takes its items from a counter,
 // `tile` threads an item: the blocks of `threads` that the card keeps
 // resident (the occupancy query, made once per device and kept), capped
@@ -550,7 +507,7 @@ cudaError_t persistent_grid(int threads, int tile, int64_t n, int* grid,
 }
 #endif
 
-// ---- the scan of a block row by a group (K1, K3, K6) ----
+// ---- the scan of a block row by a group (K0, K1, K3, K6) ----
 
 constexpr int kChunks = 8;  // 16-byte chunks of a row's 128-byte words
 
@@ -760,7 +717,7 @@ FM_HD Fc4<R> load_fc(const T& t) {
   return Fc4<R>{{t.fc(0), t.fc(1), t.fc(2), t.fc(3)}};
 }
 
-// ---- the depth-12 ftab (K4): one level-1 range a group ----
+// ---- ranges extended by every code (K0's level 1, K4) ----
 
 // Part p (of G) of the all-code scans of two rows: the bit planes before
 // `wa` in row a (bits 0-26, as ScanPart<G, true> counts them) and before
@@ -798,10 +755,58 @@ struct PairAllPart {
   }
 };
 
+// Both ends of a range [lt, lb), scanned once by a group for every
+// code: the block rows of both ends read once (a row they share, once),
+// every code counted before each end in one scan, so LF(lt, c) and
+// LF(lb, c) of all four codes come from it with the '$' correction once
+// per end. An empty range (lb <= lt) reads nothing and extends to (0, 0),
+// the guard of native/fmwalk.cpp fm_ftab_extend at both levels.
+template <typename R>
+struct EndsLF {
+  Occ<R> ot, ob;
+  uint64_t f;  // the planes before lt (bits 0-26) and lb (bits 32-58)
+  R lt, lb;
+  FM_HDM bool live() const { return lb > lt; }
+  FM_HDM R top(const Fc4<R>& fc, R zoff, int c) const {
+    return live() ? fc.at(c) + ot.at(c) +
+                        (R)count_of((uint32_t)f, (int)(lt & 511), c) -
+                        (R)((c == 0 && zoff < lt) ? 1 : 0)
+                  : (R)0;
+  }
+  FM_HDM R bot(const Fc4<R>& fc, R zoff, int c) const {
+    return live() ? fc.at(c) + ob.at(c) +
+                        (R)count_of((uint32_t)(f >> 32), (int)(lb & 511),
+                                    c) -
+                        (R)((c == 0 && zoff < lb) ? 1 : 0)
+                  : (R)0;
+  }
+};
+
+template <typename R, typename Grp>
+FM_HD EndsLF<R> scan_ends(const uint32_t* blocks, const Grp& g, R lt,
+                          R lb) {
+  EndsLF<R> e{};
+  e.lt = lt;
+  e.lb = lb;
+  if (e.live()) {
+    const uint32_t* rt = blocks + (int64_t)(lt >> 9) * Geo<R>::kWidth;
+    const uint32_t* rb = blocks + (int64_t)(lb >> 9) * Geo<R>::kWidth;
+    e.ot = load_occ<R>(rt);
+    e.ob = load_occ<R>(rb);
+    e.f = g.sum(PairAllPart<Grp::kG>{rt + Geo<R>::kWordOff,
+                                     rb + Geo<R>::kWordOff, (int)(lt & 511),
+                                     (int)(lb & 511)});
+  }
+  return e;
+}
+
+// ---- the depth-12 ftab (K4): one level-1 range a group ----
+
 // The 2^22 level-1 ranges: i1 = e10 | c10 << 20, t1/b1[i1] = LF(t0[e10],
-// c10) / LF(b0[e10], c10) from K0; the depth-12 entries of i1 are
-// idx = i1 | c11 << 22 (the window layout of the search: the char at
-// cur + j sits at bits 2j).
+// c10) / LF(b0[e10], c10) from K0's level-1 entry (scan_ends of the
+// depth-10 range); the depth-12 entries of i1 are idx = i1 | c11 << 22
+// (the window layout of the search: the char at cur + j sits at bits
+// 2j).
 constexpr int64_t kN10 = (int64_t)1 << 20;
 constexpr int64_t kN1 = (int64_t)1 << 22;
 
@@ -830,36 +835,16 @@ FM_HD void level1_range(const Ftab12Args<R>& a, int64_t i1, R* lt, R* lb) {
 }
 
 // The four depth-12 entries that extend level-1 range i1, (lt, lb) as
-// level1_range gives it, by the group g. Only a non-empty range extends;
-// every other entry stores (0, 0). A non-empty range reads the block
-// rows of its two ends once, all four codes counted in one scan (the
-// '$' correction once per end), and forms LF of both ends for every
-// c11; the group's threads split the four stores.
+// level1_range gives it, by the group g: both ends scanned once
+// (scan_ends), LF of both ends for every c11, the group's threads
+// splitting the four stores.
 template <typename R, typename Grp>
 FM_HD void ftab12_range(const Ftab12Args<R>& a, const Fc4<R>& fc,
                         const Grp& g, int64_t i1, R lt, R lb) {
-  const bool live = lb > lt;
-  Occ<R> ot{}, ob{};
-  uint64_t f = 0;
-  const int wt = (int)(lt & 511), wb = (int)(lb & 511);
-  if (live) {
-    const uint32_t* rt = a.blocks + (int64_t)(lt >> 9) * Geo<R>::kWidth;
-    const uint32_t* rb = a.blocks + (int64_t)(lb >> 9) * Geo<R>::kWidth;
-    ot = load_occ<R>(rt);
-    ob = load_occ<R>(rb);
-    f = g.sum(PairAllPart<Grp::kG>{rt + Geo<R>::kWordOff,
-                                   rb + Geo<R>::kWordOff, wt, wb});
-  }
-  for (int c = g.rank(); c < 4; c += g.size()) {
-    R top = 0, bot = 0;
-    if (live) {
-      top = fc.at(c) + ot.at(c) + (R)count_of((uint32_t)f, wt, c) -
-            (R)((c == 0 && a.zoff < lt) ? 1 : 0);
-      bot = fc.at(c) + ob.at(c) + (R)count_of((uint32_t)(f >> 32), wb, c) -
-            (R)((c == 0 && a.zoff < lb) ? 1 : 0);
-    }
-    ftab_store<R>(a.out, i1 | ((int64_t)c << 22), top, bot);
-  }
+  const EndsLF<R> e = scan_ends<R>(a.blocks, g, lt, lb);
+  for (int c = g.rank(); c < 4; c += g.size())
+    ftab_store<R>(a.out, i1 | ((int64_t)c << 22), e.top(fc, a.zoff, c),
+                  e.bot(fc, a.zoff, c));
 }
 
 // Ask for r's block row (its first and last line) ahead of its scan, so

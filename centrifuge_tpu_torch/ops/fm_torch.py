@@ -23,7 +23,7 @@ import torch
 
 from .. import _cuda
 from ..index.cf_io import CFIndex
-from .rank import bwt_at_plain, is_wide, lf, rank_plain, word_counts
+from .rank import bwt_at_plain, is_wide, level1, rank_plain, word_counts
 
 BLOCK_BASES = 512
 WORDS_PER_BLOCK = BLOCK_BASES // 16
@@ -188,14 +188,12 @@ def ftab12_plain(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
 def ftab12_level1(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
                   t0: torch.Tensor, b0: torch.Tensor):
     """The depth-12 ftab's level 1: t1/b1[e10 | c10 << 20] = LF(t0[e10],
-    c10) / LF(b0[e10], c10), from one rank-kernel launch (K0) over the
-    8,388,608 (row, char) queries on CUDA tensors, the plain rank on CPU
-    tensors."""
-    rows1 = torch.cat([t0.repeat(4), b0.repeat(4)])
-    chars1 = torch.arange(4, dtype=torch.int32, device=blocks.device
-                          ).repeat_interleave(N10).repeat(2)
-    l1 = lf(blocks, fchr, zoff, rows1, chars1)
-    return l1[: 4 * N10], l1[4 * N10:]
+    c10) / LF(b0[e10], c10) where the depth-10 range is non-empty, else
+    0; on CUDA tensors one launch of K0's level-1 entry (a tile of
+    threads a depth-10 range), on CPU tensors the plain version."""
+    if t0.shape != (N10,):
+        raise ValueError("the level 1 extends the 2^20 depth-10 ranges")
+    return level1(blocks, fchr, zoff, t0, b0)
 
 
 def ftab12_level2(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
@@ -233,9 +231,8 @@ def build_ftab12(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
                  out: torch.Tensor) -> torch.Tensor:
     """K4: the depth-12 ftab written in place into `out`, the zeroed
     packed-row table [2^24 / (16 | 8), 36 | 40]. On CUDA tensors: one
-    rank-kernel launch for the level-1 LF pairs, then one ftab12-kernel
-    launch with a tile of threads a level-1 range; on CPU tensors the
-    plain version."""
+    launch of K0's level-1 entry, then one ftab12-kernel launch with a
+    tile of threads a level-1 range; on CPU tensors the plain version."""
     if t0.shape[0] != N10:
         raise ValueError("the depth-12 ftab extends a depth-10 ftab")
     if not blocks.is_cuda:

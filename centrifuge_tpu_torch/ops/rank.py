@@ -1,11 +1,14 @@
-"""K0: batched rank_c(row) and LF(row, c) over the packed BWT blocks.
+"""K0: batched rank_c(row) and LF(row, c) over the packed BWT blocks,
+and the depth-12 ftab's level 1 (LF of both ends of every depth-10
+range for every code).
 
-The CUDA kernel (csrc/rank.cu) runs for tensors on a CUDA device; the
-plain PyTorch version below runs for tensors on the CPU, and is what
-the kernel is held against on the card. Both compute the JAX package's
+The CUDA kernels (csrc/rank.cu: `rank` a tile of kTile threads a
+query, `level1` a tile of kTileL1 threads a range) run for tensors on a
+CUDA device; the plain PyTorch versions below run for tensors on the
+CPU, and are what the kernels are held against on the card. They compute the JAX package's
 rank_kernel / lf_kernel (ops/fm_jax.py) and its Pallas rank kernel
-(ops/pallas_rank.py), narrow (int32 rows, 36-word blocks) and wide
-(int64 rows, 40-word blocks).
+(ops/pallas_rank.py), and the level 1 of its _ftab12_rows_graph, narrow
+(int32 rows, 36-word blocks) and wide (int64 rows, 40-word blocks).
 
 Counting trick: XOR each word with the char's repeated 2-bit pattern, so
 matching bases become 00; AND the complement's two bit planes to get one
@@ -117,22 +120,48 @@ def bwt_at_plain(blocks: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return (word >> (2 * (r & 15))) & 3
 
 
-def _check_kernel_args(blocks, fchr, rows, chars) -> None:
+def level1_plain(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
+                 t0: torch.Tensor, b0: torch.Tensor, counts=None):
+    """(t1, b1) in the row dtype: t1[e + c * n] = LF(t0[e], c) and
+    b1[e + c * n] = LF(b0[e], c) for the n ranges (t0, b0) and c = 0..3,
+    where the range is non-empty (b0 > t0); 0 where it is empty, the
+    guard of the JAX package's level 1 (fm_jax._ftab12_rows_graph)."""
+    n = t0.shape[0]
+    if counts is None:
+        counts = word_counts(blocks)
+    f = fchr.to(torch.int64)
+    t1 = torch.zeros(4 * n, dtype=torch.int64, device=t0.device)
+    b1 = torch.zeros_like(t1)
+    par = torch.nonzero(b0 > t0)[:, 0]
+    for c in range(4):
+        ch = torch.full(par.shape, c, dtype=torch.int32, device=t0.device)
+        t1[c * n + par] = f[c] + rank_plain(blocks, zoff, t0[par], ch, counts)
+        b1[c * n + par] = f[c] + rank_plain(blocks, zoff, b0[par], ch, counts)
+    return t1.to(t0.dtype), b1.to(b0.dtype)
+
+
+def _check_kernel_args(blocks, fchr, rows, chars=None) -> None:
+    """Device, types and shapes the kernels take; the block table 16-byte
+    aligned (rows are read in 16-byte chunks); at most MAX_ITEMS items."""
     _cuda.require_cuda(blocks, fchr, rows, chars)
     want = torch.int64 if is_wide(blocks) else torch.int32
     if blocks.dtype != torch.int32 or blocks.dim() != 2:
         raise ValueError("blocks must be an int32 [nblk, 36|40] tensor")
     if rows.dtype != want or (fchr is not None and fchr.dtype != want):
         raise ValueError(f"rows and fchr must be {want} for this layout")
-    if chars.dtype != torch.int32 or chars.shape != rows.shape:
+    if chars is not None and (chars.dtype != torch.int32
+                              or chars.shape != rows.shape):
         raise ValueError("chars must be int32 with the shape of rows")
+    if rows.numel() > _cuda.MAX_ITEMS:
+        raise ValueError(f"at most {_cuda.MAX_ITEMS} items a launch")
+    _cuda.require_aligned(blocks)
 
 
 def rank(blocks: torch.Tensor, zoff: int, rows: torch.Tensor,
          chars: torch.Tensor, fchr: torch.Tensor = None) -> torch.Tensor:
     """rank_c(row) (or LF(row, c) = fchr[c] + rank_c(row) when fchr is
-    given) in the row dtype: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    given; chars 0..3) in the row dtype: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     tensors = (blocks, fchr, rows, chars)
     if not any(t is not None and t.is_cuda for t in tensors):
         out = rank_plain(blocks, zoff, rows, chars)
@@ -155,3 +184,28 @@ def lf(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
        rows: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
     """LF(row, c) = fchr[c] + rank_c(row)."""
     return rank(blocks, zoff, rows, chars, fchr=fchr)
+
+
+def level1(blocks: torch.Tensor, fchr: torch.Tensor, zoff: int,
+           t0: torch.Tensor, b0: torch.Tensor):
+    """(t1, b1) of level1_plain: on CUDA tensors one launch of the
+    level-1 kernel (a tile of threads a range, both ends' rows scanned
+    once for every code), on CPU tensors the plain version."""
+    if not any(t.is_cuda for t in (blocks, fchr, t0, b0)):
+        return level1_plain(blocks, fchr, zoff, t0, b0)
+    _check_kernel_args(blocks, fchr, t0)
+    if b0.dtype != t0.dtype or b0.shape != t0.shape or t0.dim() != 1:
+        raise ValueError("t0 and b0 must be 1-D of one shape and dtype")
+    _cuda.require_cuda(b0)
+    n = t0.numel()
+    t1 = torch.empty(4 * n, dtype=t0.dtype, device=t0.device)
+    b1 = torch.empty_like(t1)
+    lib = _cuda.lib("rank")
+    fn = lib.fm_lf_level1_wide if is_wide(blocks) \
+        else lib.fm_lf_level1_narrow
+    rc = fn(blocks.data_ptr(), fchr.data_ptr(), int(zoff), t0.data_ptr(),
+            b0.data_ptr(), t1.data_ptr(), b1.data_ptr(), n,
+            _cuda.stream_ptr(t0.device))
+    _cuda.check(rc, "level-1 kernel")
+    _cuda.LAUNCHES["rank"] += 1
+    return t1, b1

@@ -11,7 +11,8 @@ JSON line; any failure exits non-zero:
   env       card name, count, power limit
   kernels   each kernel against its plain PyTorch version on the synth
             index (tests/fixtures/synth), exact integer equality, narrow
-            and wide: rank (K0) on 65,536 random (row, char) pairs,
+            and wide: rank (K0) on 65,536 random (row, char) pairs and
+            K0's level-1 entry on the 2^20 depth-10 ranges,
             depth-12 ftab (K4), greedy search (K1) on every lane of the
             synth reads, deep or not, min_hitlen 16 and 22; the SA
             resolve walk (K3) on 65,536 random rows and the edge rows, at
@@ -25,7 +26,8 @@ JSON line; any failure exits non-zero:
             K1's, K3's and K4's launch shape: a tile of more than one
             thread a lane, row or level-1 range, a persistent grid
             capped at what the items fill (one block for the 2-lane
-            first-hit search)
+            first-hit search); K0's two entries' the same, a warp a
+            chunk of 32 items
   synth     the classify CLI on the card (host resolve), then
             GPUClassificationPipeline with host_resolve=False (device
             resolve): unpaired output and report and paired output
@@ -50,11 +52,16 @@ JSON line; any failure exits non-zero:
             the first's. Launch counts of each path, the first 300 reads
             against the host oracle (ClassificationPipeline + FMOracle),
             reads/s, kernel times at this size by CUDA events beside
-            their plain versions and bounds (K0 on K4's level-1 queries;
-            K4's own launch and, apart, the whole depth-12 build, each
-            with its own bound; K1 and K5 on the first batch, K5's
+            their plain versions and bounds (K0's level-1 entry on the
+            2^20 depth-10 ranges, and its generic kernel on the same
+            8,388,608 (row, char) pairs and on 65,536 random ones, there
+            the kernel alone (a CUDA graph of launches through its C
+            entry) and the wrapper; K4's
+            own launch and, apart, the whole depth-12 build, each with
+            its own bound; K1 and K5 on the first batch, K5's
             kernel alone and its wrapper beside it; K3 on that batch's
-            presolve rows; K1's, K3's and K4's tile, grid and registers,
+            presolve rows; K0's, K1's, K3's and K4's tile, grid and
+            registers,
             and the plain versions' lockstep steps and longest walk: the
             longest chains of dependent reads), peak device memory
   full_sharded  the same reads through a (1, 4) mesh of cuda:0 (K6),
@@ -76,7 +83,6 @@ over the card's integer and popcount issue rates.
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -102,13 +108,14 @@ SECTOR = 32                    # bytes: the unit the L2 moves to/from HBM
 # bwt_at() takes 5. The search's read decoding is not counted, so its
 # bound is, if anything, too low.
 RANK_OPS, WORD_OPS, PARTIAL_OPS, BWT_OPS = 10, 4, 7, 5
-# K4's all-code scan of a block row end (fm_common.cuh PairAllPart,
-# planes_before): per 32 bases before the end, 12 operations (the mask,
-# the two bit planes, their AND, the field shifts and adds) and 3
-# population counts; per end, 38 more (its row address and occ, and LF
-# of each of the 4 codes from the planes, the '$' correction). K4's
-# operations bound is that of the cheaper scheme on the same ends: this
-# one, or one rank per (end, code) as counted above.
+# The all-code scan of a range end by K0's level 1 and K4 (fm_common.cuh
+# scan_ends, PairAllPart, planes_before): per 32 bases before the end,
+# 12 operations (the mask, the two bit planes, their AND, the field
+# shifts and adds) and 3 population counts; per end, 38 more (its row
+# address and occ, and LF of each of the 4 codes from the planes, the
+# '$' correction). Their operations bound is that of the cheaper scheme
+# on the same ends: this one, or one rank per (end, code) as counted
+# above.
 ALL_HALF_OPS, ALL_HALF_POPC, ALL_END_OPS = 12, 3, 38
 # The presolve (K5), per hit entry: its size, the scoring and gate
 # tests and its sort key (about 20 operations); per mate, the compares
@@ -193,7 +200,7 @@ def load_port():
     from centrifuge_tpu_torch.classify.pipeline import (
         ClassificationPipeline, PipelineConfig)
     from centrifuge_tpu_torch.cli import classify as cli
-    from centrifuge_tpu_torch.evaluation import bigdb
+    from centrifuge_tpu_torch.evaluation import bigdb, tile_sweep
     from centrifuge_tpu_torch.index.cf_io import load_cf_index
     from centrifuge_tpu_torch.io.fastx import read_batch, read_fastx
     from centrifuge_tpu_torch.ops import fm_torch, rank
@@ -205,7 +212,8 @@ def load_port():
                 sharded=sharded,
                 Pipe=GPUClassificationPipeline,
                 OraclePipe=ClassificationPipeline, Cfg=PipelineConfig,
-                cli=cli, bigdb=bigdb, load_cf_index=load_cf_index,
+                cli=cli, bigdb=bigdb, tile_sweep=tile_sweep,
+                load_cf_index=load_cf_index,
                 read_batch=read_batch, read_fastx=read_fastx,
                 ClsCfg=ClassifierConfig,
                 write_report=write_report,
@@ -386,19 +394,14 @@ class Smoke:
         self.equal("presolve (timed kernel)", [out], [flat])
         return s.elapsed_time(e) / reps
 
-    def ftab12_bound(self, fm, t0, b0, t1, b1) -> dict:
-        """K4's bound on this run's inputs: bytes = the depth-10 and
-        level-1 pairs in, every depth-12 entry out, and each 32-byte
-        sector of the block table that the scans of the non-empty
-        level-1 ranges' ends touch, once; operations = the cheaper of
-        one all-code scan per end and one rank per (end, code)."""
+    def ends_scan(self, fm, ends):
+        """(bytes, integer ops, popcounts) of scanning the block row of
+        each range end once for every code (fm_common.cuh scan_ends):
+        each 32-byte sector of the block table that the ends touch (occ
+        and the words before each end, as a rank of each code reads
+        them), once; operations the cheaper of one all-code scan per end
+        and one rank per (end, code)."""
         torch = self.torch
-        i64 = torch.int64
-        live = (b0 > t0).repeat(4) & (b1 > t1)
-        ends = torch.cat([t1[live], b1[live]]).to(i64)
-        rsz = fm.fchr.element_size()
-        # the sectors: occ and the words before each end, as a rank of
-        # each code reads them
         nbytes, rank_ops, rank_popc = self.traffic(fm, dict(
             rank_rows=[ends] * 4,
             rank_chars=[torch.full_like(ends, c) for c in range(4)]))
@@ -410,10 +413,32 @@ class Smoke:
         def t_ops(ops, popc):
             return max(ops / INT32_OPS_PER_S, popc / POPC_OPS_PER_S)
 
-        ops, popc = (all_ops, all_popc) if t_ops(all_ops, all_popc) \
-            <= t_ops(rank_ops, rank_popc) else (rank_ops, rank_popc)
+        if t_ops(all_ops, all_popc) <= t_ops(rank_ops, rank_popc):
+            return nbytes, all_ops, all_popc
+        return nbytes, rank_ops, rank_popc
+
+    def ftab12_bound(self, fm, t0, b0, t1, b1) -> dict:
+        """K4's bound on this run's inputs: bytes = the depth-10 and
+        level-1 pairs in, every depth-12 entry out, and the scans of the
+        non-empty level-1 ranges' ends (ends_scan)."""
+        torch = self.torch
+        live = (b0 > t0).repeat(4) & (b1 > t1)
+        ends = torch.cat([t1[live], b1[live]]).to(torch.int64)
+        nbytes, ops, popc = self.ends_scan(fm, ends)
         io = (2 * t0.numel() + 2 * t1.numel() + 2 * self.m["fm_torch"].N12
-              ) * rsz
+              ) * fm.fchr.element_size()
+        return dict(**self.bound(nbytes + io, ops, popc),
+                    live_ranges=int(live.sum()), scanned_ends=ends.numel())
+
+    def level1_bound(self, fm, t0, b0) -> dict:
+        """K0's level-1 bound on this run's inputs: bytes = the depth-10
+        pairs in, the level-1 pairs out (4 a range), and the scans of the
+        non-empty depth-10 ranges' ends (ends_scan)."""
+        torch = self.torch
+        live = b0 > t0
+        ends = torch.cat([t0[live], b0[live]]).to(torch.int64)
+        nbytes, ops, popc = self.ends_scan(fm, ends)
+        io = 10 * t0.numel() * fm.fchr.element_size()
         return dict(**self.bound(nbytes + io, ops, popc),
                     live_ranges=int(live.sum()), scanned_ends=ends.numel())
 
@@ -515,32 +540,27 @@ class Smoke:
         regs = {}
         for name in cuda.SIGNATURES:    # the compiler logs of the builds
             with open(os.path.join(cuda.BUILD_DIR, f"{name}.log")) as f:
-                log = f.read()
-            regs[name], entry = [], ""
-            for ln in log.splitlines():
-                # "Compiling entry function '..search_kernelIiE..'": the
-                # kernel and its row type (i: narrow, l: wide)
-                k = re.search(r"([a-z_]+\d*_kernel)I([il])E", ln)
-                if "entry function" in ln and k:
-                    entry = (f"{k.group(1)} "
-                             f"{'narrow' if k.group(2) == 'i' else 'wide'}: ")
-                elif "registers" in ln or "spill" in ln:
-                    regs[name].append(entry + ln.split(":", 1)[-1].strip())
+                regs[name] = cuda.ptxas_report(f.read())
         self.ptxas = regs
         emit(dict(phase="env", device=self.name, count=self.count,
                   capability=list(cap), nvidia_smi=self.smi,
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernel_build_s=round(build_s, 3), ptxas=regs))
 
-    def launch_shape(self, kernel: str, wide: bool, n: int) -> dict:
-        """K1's, K3's or K4's launch for n lanes, rows or level-1 ranges:
-        a tile of more than one thread each, and a persistent grid, the
-        resident blocks capped at what n items fill."""
-        cfg = self.m["cuda"].persistent_config(kernel, wide, n)
-        need = -(-n * cfg["tile"] // cfg["threads"])
-        if cfg["tile"] < 2 or cfg["grid"] != min(cfg["resident_blocks"],
-                                                  need):
-            fail(f"{kernel} launch shape for {n} items: {cfg}")
+    def launch_shape(self, kernel: str, wide: bool, n: int,
+                     entry: str = None) -> dict:
+        """The launch of K1, K3 or K4 for n lanes, rows or level-1
+        ranges, or of K0 (entry "lf_level1": its level 1) for n queries
+        or depth-10 ranges: a persistent grid, the resident blocks capped
+        at what n items fill. K1, K3 and K4 run an item on a tile of more
+        than one thread; K0's warps take chunks of 32 items, a thread's
+        share of a block an item."""
+        cfg = self.m["cuda"].persistent_config(kernel, wide, n, entry)
+        rank = kernel == "rank"
+        need = -(-n * (1 if rank else cfg["tile"]) // cfg["threads"])
+        if (cfg["tile"] < 2 and not rank) or cfg["grid"] != min(
+                cfg["resident_blocks"], need):
+            fail(f"{entry or kernel} launch shape for {n} items: {cfg}")
         return cfg
 
     def kernels(self) -> None:
@@ -574,6 +594,12 @@ class Smoke:
                     + rk.rank_plain(fm.blocks, fm.zoff, rows, chars)
                     ).to(rows.dtype)
             self.equal(f"lf wide={wide}", [got], [want])
+            # K0's level 1 on the index's 2^20 depth-10 ranges
+            t0, b0 = fm.ftab_top[:fmt.N10], fm.ftab_bot[:fmt.N10]
+            self.equal(f"level 1 wide={wide}",
+                       list(rk.level1(fm.blocks, fm.fchr, fm.zoff, t0, b0)),
+                       list(rk.level1_plain(fm.blocks, fm.fchr, fm.zoff, t0,
+                                            b0)))
             # K3 on the edge rows (0, the '$' row, the last row, the
             # boundary rows) and 65,536 random rows, at the full step
             # budget and cut to 8 LF steps (max_steps=1)
@@ -640,9 +666,13 @@ class Smoke:
             shapes["wide" if wide else "narrow"] = dict(
                 search=self.launch_shape("search", wide, 2 * BATCH_READS),
                 resolve=self.launch_shape("resolve", wide, 4 * BATCH_READS),
-                ftab12=self.launch_shape("ftab12", wide, 4 * fmt.N10))
+                ftab12=self.launch_shape("ftab12", wide, 4 * fmt.N10),
+                rank=self.launch_shape("rank", wide, 8 * fmt.N10),
+                lf_level1=self.launch_shape("rank", wide, fmt.N10,
+                                            "lf_level1"))
         emit(dict(phase="kernels", ftab12="equal (narrow, wide)",
                   rank="equal on 65536 pairs (narrow, wide)",
+                  level1="equal on the 2^20 depth-10 ranges (narrow, wide)",
                   resolve="equal on 65536 rows + edges (narrow, wide; "
                           "max_steps 4096 and 1)",
                   presolve="equal on the synth lane sets (narrow, wide; "
@@ -1106,7 +1136,7 @@ class Smoke:
                                tidx=tidx)
 
         # ---- K4 against its plain version: its own launch (level 2),
-        # and the whole build (the level-1 glue, K0, K4) ----
+        # and the whole build (K0's level-1 entry, then K4) ----
         t0v, b0v = fm.ftab_top[:fmt.N10], fm.ftab_bot[:fmt.N10]
         plain = torch.zeros_like(fm.ftab12_rows)
         _, plain_ms = self.time_host(lambda: fmt.ftab12_plain(
@@ -1130,30 +1160,49 @@ class Smoke:
             ptxas=self.ptxas.get("ftab12", []))
         del t1, b1
 
-        # ---- K0 at the main path's size: K4's level 1, LF of both ends
-        # of every depth-10 range for each char (8.4M queries) ----
+        # ---- K0 at the main path's size: its level-1 entry over the
+        # 2^20 depth-10 ranges, the launch the index load makes ----
+        l1_args = (fm.blocks, fm.fchr, fm.zoff, t0v, b0v)
+        l1 = rk.level1(*l1_args)
+        want, plain_ms = self.time_host(lambda: rk.level1_plain(*l1_args))
+        err = self.equal("level 1 (full size)", list(l1), list(want))
+        del want
+        ms = self.time_cuda(lambda: rk.level1(*l1_args), 10)
+        # ---- the generic kernel on the same 8,388,608 (row, char) pairs
+        # (LF of both ends of every range for each char), where it equals
+        # the level 1 under the empty-parent guard ----
         rows1 = torch.cat([t0v.repeat(4), b0v.repeat(4)])
         chars1 = torch.arange(4, dtype=torch.int32, device=self.dev
                               ).repeat_interleave(fmt.N10).repeat(2)
         lf_args = (fm.blocks, fm.fchr, fm.zoff, rows1, chars1)
         got = rk.lf(*lf_args)
-        want, plain_ms = self.time_host(lambda: (
+        want, plain8_ms = self.time_host(lambda: (
             fm.fchr.to(torch.int64)[chars1.to(torch.int64)]
             + rk.rank_plain(fm.blocks, fm.zoff, rows1, chars1)
         ).to(rows1.dtype))
-        err = self.equal("lf (K4 level 1)", [got], [want])
-        del got, want
-        ms = self.time_cuda(lambda: rk.lf(*lf_args), 5)
+        err8 = self.equal("lf (the level-1 pairs)", [got], [want])
+        self.equal("level 1 against the generic kernel", [torch.cat(l1)],
+                   [torch.where((b0v > t0v).repeat(8), got, 0)])
+        del got, want, l1
+        ms8 = self.time_cuda(lambda: rk.lf(*lf_args), 5)
         nbytes, int_ops, popc = self.traffic(
             fm, dict(rank_rows=[rows1], rank_chars=[chars1]))
         io = rows1.numel() * (2 * rsz + 4) + fm.fchr.numel() * rsz
+        b8 = self.bound(nbytes + io, int_ops, popc)
         self.rows["rank"].update(
-            launches=launches["rank"], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=None, queries=rows1.numel(),
-            **self.bound(nbytes + io, int_ops, popc))
+            launches=launches["rank"], max_abs_err=max(err, err8), ms=ms,
+            plain_ms=plain_ms, library_ms=None, ranges=fmt.N10,
+            **self.level1_bound(fm, t0v, b0v),
+            **self.launch_shape("rank", fm.wide, fmt.N10, "lf_level1"),
+            ptxas=self.ptxas.get("rank", []),
+            at_8388608_queries=dict(
+                ms=ms8, plain_ms=plain8_ms, max_abs_err=err8,
+                bound_ms=b8["bound_ms"], bound_by=b8["bound_by"],
+                moved_bytes=b8["moved_bytes"],
+                **self.launch_shape("rank", fm.wide, rows1.numel())))
         del rows1, chars1
-        # the whole ftab build's bound: K0's level-1 work and K4's, moved
-        # and computed once each
+        # the whole ftab build's bound: the level 1's work and K4's,
+        # moved and computed once each
         r0, r4 = self.rows["rank"], self.rows["ftab12"]
         b = self.bound(r0["moved_bytes"] + r4["moved_bytes"],
                        r0["int_ops"] + r4["int_ops"],
@@ -1171,15 +1220,22 @@ class Smoke:
         want, plain_ms = self.time_host(lambda: rk.rank_plain(
             fm.blocks, fm.zoff, rows_q, chars).to(rows_q.dtype))
         err = self.equal("rank (full size)", [got], [want])
-        ms = self.time_cuda(lambda: rk.rank(fm.blocks, fm.zoff, rows_q,
-                                            chars), 20)
+        # the kernel alone, a CUDA graph of launches through its C entry:
+        # back-to-back wrapper calls of a kernel this short are paced by
+        # the wrapper's host work
+        out = torch.empty_like(rows_q)
+        ms = m["tile_sweep"].rank_kernel_ms(fm, rows_q, chars, out, 50)
+        self.equal("rank (timed kernel)", [out], [want])
+        wrapper_ms = self.time_cuda(lambda: rk.rank(fm.blocks, fm.zoff,
+                                                    rows_q, chars), 50)
         nbytes, int_ops, popc = self.traffic(
             fm, dict(rank_rows=[rows_q], rank_chars=[chars]))
         io = n * (2 * rows_q.element_size() + 4)   # rows, chars in; out
         b = self.bound(nbytes + io, int_ops, popc)
         self.rows["rank"]["at_65536_queries"] = dict(
-            ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b["bound_ms"],
-            bound_by=b["bound_by"])
+            ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+            max_abs_err=err, bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"], **self.launch_shape("rank", fm.wide, n))
         emit(dict(phase="full_kernels", library_ms_note=NO_LIBRARY,
                   card=self.smi))
 

@@ -114,6 +114,47 @@ def test_rank_matches_jax(builds, synth_index, wide):
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_level1_matches_jax(builds, wide):
+    """The port's plain level 1 of the depth-12 ftab (ops/rank.py
+    level1_plain, what K0's level-1 entry is held to) on the synth
+    index's 2^20 depth-10 ranges, at 256 of them (empty parents, the
+    ranges that hold the '$' row, random ones), against the JAX
+    package's level 1 on the same (row, char) pairs: lf_kernel of both
+    ends for every char under its guard, where(b0 > t0, LF, 0); narrow
+    also the Pallas kernel in interpret mode plus fchr, same guard."""
+    from centrifuge_tpu.ops.fm_jax import lf_kernel
+    from centrifuge_tpu.ops.pallas_rank import rank_with_pallas
+    from centrifuge_tpu_torch.ops.fm_torch import N10
+    from centrifuge_tpu_torch.ops.rank import level1_plain
+    j, fm = builds[wide, False]
+    t0, b0 = fm.ftab_top[:N10], fm.ftab_bot[:N10]
+    t1, b1 = level1_plain(fm.blocks, fm.fchr, fm.zoff, t0, b0)
+    assert t1.dtype == b1.dtype == fm.row_dtype
+    rng = np.random.default_rng(4)
+    empty = np.nonzero((b0 <= t0).numpy())[0]
+    dollar = np.nonzero(((t0 <= fm.zoff) & (b0 > fm.zoff)).numpy())[0]
+    live = np.nonzero((b0 > t0).numpy())[0]
+    e = np.concatenate([rng.choice(empty, 64, replace=False), dollar,
+                        rng.choice(live, 256, replace=False)])[:256]
+    n = e.shape[0]
+    chars = np.repeat(np.arange(4, dtype=np.int32), n)
+    at = (np.arange(4)[:, None] * N10 + e[None, :]).reshape(-1)
+    jz = jnp.asarray(j.zoff, j.row_dtype)
+    for ends, got in ((t0, t1), (b0, b1)):
+        rows = np.tile(ends.numpy()[e], 4)
+        ok = np.tile((b0 > t0).numpy()[e], 4)
+        want = np.where(ok, np.asarray(lf_kernel(
+            j.blocks, j.fchr, jz, jnp.asarray(rows), jnp.asarray(chars))), 0)
+        np.testing.assert_array_equal(got.numpy()[at], want)
+        if not wide:   # the Pallas kernel covers the narrow layout only
+            pal = np.asarray(rank_with_pallas(
+                j.blocks, jz, jnp.asarray(rows), jnp.asarray(chars),
+                interpret=True)) + np.asarray(j.fchr)[chars]
+            np.testing.assert_array_equal(got.numpy()[at],
+                                          np.where(ok, pal, 0))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
 def test_ftab12_matches_jax_and_host(builds, port_index, wide):
     from centrifuge_tpu_torch.native.fmwalk import ftab_extend
     from centrifuge_tpu_torch.ops.fm_torch import pack_ftab_rows

@@ -115,6 +115,18 @@ def ftab12_case_inputs(fm, seed):
     return t0, b0, t1, b1, want, live
 
 
+def level1_cases(fm, seed):
+    """Depth-10 ranges (t0, b0) in the row dtype for K0's level 1, from
+    ftab12_cases' ends: in one block row and in two, the '$' row inside
+    and at either end, ends at a row's first and last base (within 0 and
+    511) and at the BWT's end, empty and inverted ranges, random ranges;
+    412 of them, so a warp's last chunk is part empty."""
+    cases = ftab12_cases(fm, fm.bwt_len, np.random.default_rng(seed))
+    dt = np.int64 if fm.wide else np.int32
+    return (torch.from_numpy(np.array([c[2] for c in cases], dt)),
+            torch.from_numpy(np.array([c[3] for c in cases], dt)))
+
+
 def mate_hits(mates, mh, wide):
     """Hit buffers [2M, mh] from per-mate lists of (strand, slot, top,
     size, len); every other slot empty (-1, -1, 0)."""
@@ -289,6 +301,93 @@ def test_presolve_kernel_cases_match_plain(cuda, wide):
     assert _cuda.LAUNCHES["presolve"] == len(cases)
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_rank_kernels_match_plain(cuda, port_index, wide):
+    """K0's two entries against their plain versions on the synth index:
+    the generic kernel (a tile a query) on every char at the edge rows
+    and on 65,536 random pairs, rank and LF; the level-1 entry (a tile a
+    depth-10 range) on the index's 2^20 ranges, equal there also to the
+    generic kernel's LF of the same pairs under the empty-parent guard,
+    and on level1_cases. Each call is one launch."""
+    from centrifuge_tpu_torch import _cuda
+    from centrifuge_tpu_torch.ops.fm_torch import N10, DeviceFMIndex
+    from centrifuge_tpu_torch.ops.rank import (level1, level1_plain, lf,
+                                               rank, rank_plain)
+    fm = DeviceFMIndex.build(port_index, device=cuda, wide=wide,
+                             deep_ftab=False)
+    blocks, fchr, z = fm.blocks.cpu(), fm.fchr.cpu(), fm.zoff
+    n = port_index.bwt_len
+    edges = [0, 1, 15, 16, 17, 63, 64, 255, 256, 511, 512, 513, z - 1, z,
+             z + 1, n - 1, n]
+    g = np.random.default_rng(8)
+    dt = np.int64 if wide else np.int32
+    rows = torch.from_numpy(np.concatenate(
+        [np.repeat(edges, 4), g.integers(0, n + 1, 65536)]).astype(dt))
+    chars = torch.from_numpy(np.concatenate(
+        [np.tile(np.arange(4), len(edges)),
+         g.integers(0, 4, 65536)]).astype(np.int32))
+    _cuda.reset_launches()
+    got = rank(fm.blocks, z, rows.to(cuda), chars.to(cuda))
+    assert torch.equal(got.cpu(), rank_plain(blocks, z, rows, chars
+                                             ).to(rows.dtype))
+    got = lf(fm.blocks, fm.fchr, z, rows.to(cuda), chars.to(cuda))
+    assert torch.equal(got.cpu(), lf(blocks, fchr, z, rows, chars))
+    t0, b0 = fm.ftab_top[:N10].contiguous(), fm.ftab_bot[:N10].contiguous()
+    got = level1(fm.blocks, fm.fchr, z, t0, b0)
+    want = level1_plain(blocks, fchr, z, t0.cpu(), b0.cpu())
+    for k, w in zip(got, want):
+        assert torch.equal(k.cpu(), w)
+    pairs = torch.cat([t0.repeat(4), b0.repeat(4)])
+    codes = torch.arange(4, dtype=torch.int32, device=cuda
+                         ).repeat_interleave(N10).repeat(2)
+    assert torch.equal(torch.cat(got), torch.where(
+        (b0 > t0).repeat(8), lf(fm.blocks, fm.fchr, z, pairs, codes), 0))
+    ct0, cb0 = level1_cases(fm, 9)
+    got = level1(fm.blocks, fm.fchr, z, ct0.to(cuda), cb0.to(cuda))
+    want = level1_plain(blocks, fchr, z, ct0, cb0)
+    for k, w in zip(got, want):
+        assert torch.equal(k.cpu(), w)
+    assert _cuda.LAUNCHES["rank"] == 5
+
+
+def shifted(t):
+    """The same rows, 4 bytes off the table's 16-byte alignment."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def test_rank_wrappers_refuse_bad_inputs(cuda, port_index):
+    """K0's entries read the block table in 16-byte chunks: a misaligned
+    table raises, as do rows, chars, fchr or ranges of the wrong type or
+    shape; nothing is launched."""
+    from centrifuge_tpu_torch import _cuda
+    from centrifuge_tpu_torch.ops.fm_torch import N10, DeviceFMIndex
+    from centrifuge_tpu_torch.ops.rank import level1, rank
+    fm = DeviceFMIndex.build(port_index, device=cuda, deep_ftab=False)
+    rows = torch.arange(64, dtype=torch.int32, device=cuda)
+    chars = torch.zeros(64, dtype=torch.int32, device=cuda)
+    t0, b0 = fm.ftab_top[:N10].contiguous(), fm.ftab_bot[:N10].contiguous()
+    _cuda.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rank(shifted(fm.blocks), fm.zoff, rows, chars)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        level1(shifted(fm.blocks), fm.fchr, fm.zoff, t0, b0)
+    for bad in ((rows.to(torch.int64), chars), (rows, chars.to(torch.int64)),
+                (rows, chars[:32])):
+        with pytest.raises(ValueError):
+            rank(fm.blocks, fm.zoff, *bad)
+    with pytest.raises(ValueError):
+        rank(fm.blocks, fm.zoff, rows, chars, fchr=fm.fchr.to(torch.int64))
+    for bad in ((t0, b0.to(torch.int64)), (t0.view(2, -1), b0.view(2, -1)),
+                (t0, b0[:64])):
+        with pytest.raises(ValueError):
+            level1(fm.blocks, fm.fchr, fm.zoff, *bad)
+    assert _cuda.LAUNCHES["rank"] == 0
+
+
 def test_misaligned_tables_raise(cuda, port_index):
     """K1, K3 and K4 read the block and ftab tables in 16-byte chunks (K4
     stores whole entries): a table that is a sliced view off that
@@ -301,14 +400,6 @@ def test_misaligned_tables_raise(cuda, port_index):
                                                    ftab12_level2,
                                                    resolve_rows)
     fm = DeviceFMIndex.build(port_index, device=cuda, deep_ftab=True)
-
-    def shifted(t):   # the same rows, 4 bytes off the table's alignment
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        view = flat[1:].view(t.shape)
-        view.copy_(t)
-        assert view.is_contiguous() and view.data_ptr() % 16 == 4
-        return view
-
     L = 8
     args = (torch.zeros((L, 80), dtype=torch.uint8, device=cuda),
             torch.full((L,), 100, dtype=torch.int32, device=cuda),

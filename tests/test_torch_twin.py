@@ -19,7 +19,8 @@ import torch
 
 from conftest import fixture_path
 from test_torch_gpu import (FTAB12_FILL, PRESOLVE_CASES,  # noqa: F401
-                            ftab12_case_inputs, presolve_case, random_hits)
+                            ftab12_case_inputs, level1_cases, presolve_case,
+                            random_hits)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "centrifuge_tpu_torch", "csrc")
@@ -30,6 +31,7 @@ _SIGS = {
     "search": [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
                _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32],
     "ftab12": [_P, _P, _I64, _P, _P, _P, _P, _P, _I32],
+    "level1": [_P, _P, _I64, _P, _P, _P, _P, _I64, _I32],
     "resolve": [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _I32,
                 _P, _P, _I64, _I32],
     "presolve": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _I64,
@@ -64,8 +66,8 @@ def build_twin(out_dir: str):
             fn = getattr(lib, f"twin_{name}_{kind}")
             fn.argtypes = sig
             # the search, walk and K6 twin loops return the longest
-            # lane's count of table reads, the rank and ftab12 0; -1 for
-            # a group other than 1, 2, 4 or 8
+            # lane's count of table reads, the rank, level1 and ftab12 0;
+            # -1 for a group other than 1, 2, 4 or 8
             fn.restype = None if name == "presolve" else _I64
     return lib
 
@@ -158,32 +160,98 @@ def _edge_rows(bwt_len: int, zoff: int, rng) -> np.ndarray:
                                                          2048)])
 
 
-@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
-def test_twin_rank_matches_plain(twin, port_index, wide):
+# K0's tile sizes in the card's sweep; the G = 1 cases keep the ids the
+# test had when K0 was one thread a query
+RANK_GROUPS = [(w, g) for g in (1, 2, 4, 8) for w in (False, True)]
+RANK_IDS = [("wide" if w else "narrow") + ("" if g == 1 else f"_g{g}")
+            for w, g in RANK_GROUPS]
+
+
+@pytest.mark.parametrize("wide,group", RANK_GROUPS, ids=RANK_IDS)
+def test_twin_rank_matches_plain(twin, port_index, wide, group):
+    """K0's query (fm_common.cuh scan_rank, as csrc/rank.cu's tile of G
+    threads runs it, its G chunk parts summed as the tile sums them)
+    against the plain rank, with and without fchr: every char at every
+    edge row (word and block edges, the '$' row and its neighbours, the
+    BWT's length), then random (row, char) pairs."""
     from centrifuge_tpu_torch.ops.fm_torch import DeviceFMIndex
     from centrifuge_tpu_torch.ops.rank import lf, rank_plain
     fm = DeviceFMIndex.build(port_index, device="cpu", wide=wide,
                              deep_ftab=False)
     rng = np.random.default_rng(5)
     rows_np = _edge_rows(port_index.bwt_len, fm.zoff, rng)
+    n_edge = rows_np.shape[0] - 2048
     rows = torch.from_numpy(rows_np.astype(np.int64 if wide else np.int32))
     chars = torch.from_numpy(rng.integers(0, 4, rows.shape[0]).astype(
         np.int32))
-    # every char at every edge row, then the random ones
-    rows = torch.cat([rows.repeat_interleave(4)[:4 * 40], rows])
-    chars = torch.cat([torch.arange(4, dtype=torch.int32).repeat(40), chars])
+    rows = torch.cat([rows[:n_edge].repeat_interleave(4), rows])
+    chars = torch.cat([torch.arange(4, dtype=torch.int32).repeat(n_edge),
+                       chars])
     fn = twin.twin_rank_wide if wide else twin.twin_rank_narrow
+    codes = torch.empty(rows.shape, dtype=torch.int32)
+    pair = torch.empty_like(rows)
     for use_fchr in (False, True):
         got = torch.empty_like(rows)
         assert fn(ptr(fm.blocks), ptr(fm.fchr) if use_fchr else None,
-                  fm.zoff, ptr(rows), ptr(chars), ptr(got), rows.shape[0], 0,
-                  None, None) == 0
+                  fm.zoff, ptr(rows), ptr(chars), ptr(got), rows.shape[0],
+                  group, ptr(codes), ptr(pair)) == 0
         want = rank_plain(fm.blocks, fm.zoff, rows, chars)
         if use_fchr:
             want = fm.fchr.to(torch.int64)[chars.to(torch.int64)] + want
             assert torch.equal(lf(fm.blocks, fm.fchr, fm.zoff, rows, chars),
                                want.to(rows.dtype))
         assert torch.equal(got, want.to(rows.dtype))
+
+
+def twin_level1(lib, fm, t0, b0, group):
+    """K0's level 1 (fm_common.cuh scan_ends over each range) on the
+    host, run by the one-thread group of `group` parts: (t1, b1)."""
+    n = t0.numel()
+    t1 = torch.full((4 * n,), -9, dtype=t0.dtype)
+    b1 = torch.full_like(t1, -9)
+    fn = lib.twin_level1_wide if fm.wide else lib.twin_level1_narrow
+    assert fn(ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(t0), ptr(b0),
+              ptr(t1), ptr(b1), n, group) == 0
+    return t1, b1
+
+
+@pytest.fixture(scope="module")
+def synth_level1(port_index):
+    """wide -> (fm, t0, b0, the plain level 1 of the synth index's 2^20
+    depth-10 ranges), computed once a module."""
+    from centrifuge_tpu_torch.ops.fm_torch import N10, DeviceFMIndex
+    from centrifuge_tpu_torch.ops.rank import level1_plain
+    out = {}
+    for wide in (False, True):
+        fm = DeviceFMIndex.build(port_index, device="cpu", wide=wide,
+                                 deep_ftab=False)
+        t0 = fm.ftab_top[:N10].contiguous()
+        b0 = fm.ftab_bot[:N10].contiguous()
+        out[wide] = (fm, t0, b0,
+                     level1_plain(fm.blocks, fm.fchr, fm.zoff, t0, b0))
+    return out
+
+
+@pytest.mark.parametrize("wide,group", RANK_GROUPS, ids=RANK_IDS)
+def test_twin_level1_matches_plain(twin, synth_level1, wide, group):
+    """K0's level-1 entry, its G chunk parts summed as a tile sums them:
+    over the synth index's 2^20 depth-10 ranges (empty parents
+    included) and over chosen ranges (test_torch_gpu.py level1_cases),
+    t1/b1 equal the plain level 1, which holds LF of both ends where
+    the range is non-empty and 0 where it is empty."""
+    from centrifuge_tpu_torch.ops.rank import level1_plain
+    fm, t0, b0, want = synth_level1[wide]
+    assert bool((b0 <= t0).any()) and bool((b0 > t0).any())
+    got = twin_level1(twin, fm, t0, b0, group)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    t0, b0 = level1_cases(fm, 70 + group)
+    got = twin_level1(twin, fm, t0, b0, group)
+    want = level1_plain(fm.blocks, fm.fchr, fm.zoff, t0, b0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    empty = (b0 <= t0).repeat(4)
+    assert bool(empty.any()) and not bool((want[0][empty] != 0).any())
 
 
 # the one-thread group at the card's tile sizes (and K6's G = 1); the

@@ -149,7 +149,9 @@ def search_plain(fm: DeviceFMIndex, reads: torch.Tensor,
     stats (optional dict) receives the lookups the kernel makes for this
     run's lanes, as lists of tensors: `rank_rows`/`rank_chars` of every
     LF rank, `bwt_rows` of every BWT char test of a one-row range, and
-    `ftab`/`ftab12` entry indexes of every start lookup."""
+    `ftab`/`ftab12` entry indexes of every start lookup; and `steps`,
+    one int64 [L] tensor, each lane's count of transitions (the JAX
+    search_loop's count_steps)."""
     return search_steps(TableReads(fm), reads, lengths, start, mh,
                         min_hitlen, increment, first_hit_only, deep, stats)
 
@@ -183,10 +185,12 @@ def search_steps(tables, reads: torch.Tensor, lengths: torch.Tensor,
     h_bot = torch.full((L, mh), -1, **i64)
     h_off = torch.zeros((L, mh), **i64)
     h_len = torch.zeros((L, mh), **i64)
+    steps = torch.zeros(L, **i64)
     while True:
         a = torch.nonzero(~done)[:, 0]
         if a.numel() == 0:
             break
+        steps[a] += 1
         n, cu, ex, nz = n_all[a], cur[a], ext[a], no12[a]
         dp, tp, bt, ofs = dep[a], top[a], bot[a], off[a]
         st = ~ex
@@ -276,6 +280,8 @@ def search_steps(tables, reads: torch.Tensor, lengths: torch.Tensor,
         bot[a] = torch.where(go, fb, torch.where(adv, b2, bt))
         no12[a] = torch.where(empty12, True, torch.where(emit | go, False,
                                                          nz))
+    if stats is not None:
+        _note(stats, steps=steps)
     idt = tables.row_dtype
     i32 = torch.int32
     return [h_top.to(idt), h_bot.to(idt), h_off.to(i32), h_len.to(i32),

@@ -69,6 +69,18 @@ JSON line; any failure exits non-zero:
             single-device host-resolve stream; K6's search on the first
             batch and its walk on that batch's presolve rows, timed
             beside their plain versions and bounds
+  tools     the port's tool surface (python -m centrifuge_tpu_torch
+            <tool>) on the synth fixture: build byte-equal to
+            synth.{1..4}.cf; inspect, kreport and promote byte-equal to
+            the goldens of tests/test_cli.py; simulate 1,000 reads,
+            classify them on the card in a process of its own (run as
+            python -m runs it), evaluate them (its per-rank lines)
+  prof      evaluation/prof.py on the 256 Mbp index and the full batches
+            that `full` holds, once with the host resolve and once with
+            the device resolve: one JSON line each (the per-batch search,
+            dispatch and block, the host tail, the main thread's split,
+            streams, the device's idle share, steps per lane); each
+            line's keys present and its device timings measured
 
 Then one JSON line of per-kernel numbers, the card's nvidia-smi line,
 and last {"ok": true, "device": {...}}. It takes no arguments.
@@ -127,6 +139,50 @@ SEARCH_MH = 16                 # hit slots per lane in the K1 checks
 BATCH_READS = 32768            # bench.py's batch: 65,536 lanes
 BIGDB_GENOMES = 64             # evaluation/bigdb.py N_GENOMES (256 Mbp)
 ORACLE_READS = 300
+PROF_RUNS = 2                  # prof's streams of each kind, tail replays
+SIM_READS = 1000               # the tools phase's simulated reads
+# the keys every prof line holds, and those that must hold a measurement
+# on the card (with "value" of device_idle_share)
+PROF_KEYS = ("device_search_fetch_ms", "device_compute_ms", "dispatch_ms",
+             "transfer_block_ms", "host_tail_ms", "host_prep_ms",
+             "host_prep_split_ms", "e2e_serial_reads_per_sec",
+             "e2e_serial_runs", "e2e_serial_collect_wait_s",
+             "e2e_serial_tail_wait_s", "e2e_serial_tail_run_s",
+             "e2e_threaded_reads_per_sec", "e2e_threaded_runs",
+             "e2e_threaded_collect_wait_s", "e2e_threaded_tail_wait_s",
+             "e2e_threaded_tail_run_s", "upload_mb_per_batch",
+             "download_mb_per_batch", "resolve_rows_per_batch",
+             "device_idle_share", "device_ops", "nvidia_smi",
+             "lockstep_mean_steps", "lockstep_max_steps",
+             "lockstep_survivors", "index_bwt_len")
+PROF_DEVICE_KEYS = ("device_search_fetch_ms", "device_compute_ms",
+                    "device_ops", "nvidia_smi")
+SYN = os.path.join(FIX, "synth")
+# the tools phase's goldens (tests/test_cli.py): the tool's argv, the
+# fixture fed on stdin, the golden
+TOOL_GOLDENS = [(["inspect", flag, SYN], None, f"inspect/golden_{g}.txt")
+                for flag, g in (("-n", "names"), ("-s", "summary"),
+                                ("--conversion-table", "conv"),
+                                ("--taxonomy-tree", "tree"),
+                                ("--name-table", "nametab"),
+                                ("--size-table", "sizetab"))] + [
+    (["kreport", "-x", SYN], "golden_output.tsv", "golden_kreport.txt"),
+    (["kreport", "-x", SYN, os.path.join(FIX, "golden_k20.tsv")], None,
+     "golden_kreport_k20.txt"),
+    (["kreport", "-x", SYN, "--no-lca", os.path.join(FIX, "golden_k20.tsv")],
+     None, "golden_kreport_k20_nolca.txt"),
+    (["kreport", "-x", SYN, "--min-score", "1000",
+      os.path.join(FIX, "golden_output.tsv")], None,
+     "golden_kreport_minscore.txt"),
+    (["kreport", "-x", SYN, "--is-count-table"], "counts.tsv",
+     "golden_kreport_counts.txt"),
+    (["promote", SYN, os.path.join(FIX, "golden_output.tsv"), "species"],
+     None, "golden_promote_species.tsv"),
+    (["promote", SYN, os.path.join(FIX, "golden_k20.tsv"), "lca"], None,
+     "golden_promote_lca.tsv"),
+]
+EVAL_LINES = ["reads", "unclassified", "strain", "species", "genus",
+              "family", "order", "class", "phylum"]
 
 KERNELS = {
     "rank": dict(source="centrifuge_tpu_torch/csrc/rank.cu",
@@ -187,6 +243,27 @@ print(json.dumps(_cuda.LAUNCHES))
 """
 
 
+# the tools phase's classify process: runs the port's __main__ as
+# `python -m centrifuge_tpu_torch` does (runpy), then writes its launch
+# counts; argv = repo, launch-count file, the tool's argv
+TOOLS_WORKER = r"""
+import json, runpy, sys
+repo, counts = sys.argv[1:3]
+sys.path.insert(0, repo)
+from centrifuge_tpu_torch import _cuda
+sys.argv = ["centrifuge_tpu_torch"] + sys.argv[3:]
+try:
+    runpy.run_module("centrifuge_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+with open(counts, "w") as f:
+    json.dump(_cuda.LAUNCHES, f)
+sys.exit(code)
+"""
+
+
 def load_port():
     """Import what the run needs: the port, torch and numpy only."""
     sys.path.insert(0, REPO)
@@ -200,7 +277,8 @@ def load_port():
     from centrifuge_tpu_torch.classify.pipeline import (
         ClassificationPipeline, PipelineConfig)
     from centrifuge_tpu_torch.cli import classify as cli
-    from centrifuge_tpu_torch.evaluation import bigdb, tile_sweep
+    from centrifuge_tpu_torch import __main__ as tools
+    from centrifuge_tpu_torch.evaluation import bigdb, prof, tile_sweep
     from centrifuge_tpu_torch.index.cf_io import load_cf_index
     from centrifuge_tpu_torch.io.fastx import read_batch, read_fastx
     from centrifuge_tpu_torch.ops import fm_torch, rank
@@ -212,7 +290,8 @@ def load_port():
                 sharded=sharded,
                 Pipe=GPUClassificationPipeline,
                 OraclePipe=ClassificationPipeline, Cfg=PipelineConfig,
-                cli=cli, bigdb=bigdb, tile_sweep=tile_sweep,
+                cli=cli, bigdb=bigdb, tile_sweep=tile_sweep, tools=tools,
+                prof=prof,
                 load_cf_index=load_cf_index,
                 read_batch=read_batch, read_fastx=read_fastx,
                 ClsCfg=ClassifierConfig,
@@ -1130,8 +1209,8 @@ class Smoke:
             **self.bound(nbytes + io, int_ops, popc),
             **self.launch_shape("resolve", fm.wide, flat.numel()),
             ptxas=self.ptxas.get("resolve", []))
-        # what full_sharded runs again over the mesh
-        self.full_state = dict(idx=idx, batches=batches, rows=rows,
+        # what full_sharded runs again over the mesh, and prof profiles
+        self.full_state = dict(idx=idx, fm=fm, batches=batches, rows=rows,
                                hits=[t.clone() for t in got], flat=flat,
                                tidx=tidx)
 
@@ -1360,6 +1439,116 @@ class Smoke:
                       "host_clock_ms"],
                   resolve_ms=ms, resolve_host_clock_ms=host_ms))
 
+    def tool(self, argv, stdin=None) -> str:
+        """stdout of `python -m centrifuge_tpu_torch argv`, run in this
+        process through the port's __main__ table; stdin: a fixture file
+        fed on standard input. Fails on a nonzero exit."""
+        import contextlib
+        import io
+        out = io.StringIO()
+        old_stdin = sys.stdin
+        try:
+            if stdin is not None:
+                with open(os.path.join(FIX, stdin)) as f:
+                    sys.stdin = io.StringIO(f.read())
+            with contextlib.redirect_stdout(out):
+                rc = self.m["tools"].run(argv)
+        finally:
+            sys.stdin = old_stdin
+        if rc:
+            fail(f"{' '.join(argv[:2])}: exit {rc}")
+        return out.getvalue()
+
+    def tools(self) -> None:
+        """The tool table on the synth fixture: build byte-equal to the
+        fixture index; inspect, kreport and promote byte-equal to the
+        goldens; simulate, classify on the card in a process of its own,
+        evaluate."""
+        t0 = time.perf_counter()
+
+        def fx(name):
+            return os.path.join(FIX, name)
+
+        out = {}
+        with tempfile.TemporaryDirectory() as td:
+            base = os.path.join(td, "synth")
+            self.tool(["build", "--conversion-table", fx("conv.dmp"),
+                       "--taxonomy-tree", fx("nodes.dmp"), "--name-table",
+                       fx("names.dmp"), "-q", fx("db.fa"), base])
+            for ext in ("1", "2", "3", "4"):
+                with open(f"{base}.{ext}.cf", "rb") as a, \
+                        open(f"{SYN}.{ext}.cf", "rb") as b:
+                    if a.read() != b.read():
+                        fail(f"build: {ext}.cf differs from the fixture")
+            out["build"] = "byte-equal to synth.{1..4}.cf"
+            for argv, stdin, gold in TOOL_GOLDENS:
+                self.same_golden(self.tool(argv, stdin), gold,
+                                 " ".join(argv[:-1]))
+                out.setdefault(argv[0], []).append(gold)
+            sim = os.path.join(td, "sim")
+            self.tool(["simulate", "-x", fx("db.fa"), "--conversion-table",
+                       fx("conv.dmp"), "-o", sim, "--num", str(SIM_READS),
+                       "--seed", "7"])
+            tsv, counts = (os.path.join(td, f) for f in ("sim.tsv",
+                                                         "counts.json"))
+            proc = subprocess.run(
+                [sys.executable, "-c", TOOLS_WORKER, REPO, counts,
+                 "classify", "-x", SYN, "-U", sim + ".fq", "-S", tsv,
+                 "--report-file", "", "--device", str(self.dev)],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            if proc.returncode:
+                fail(f"python -m centrifuge_tpu_torch classify: exit "
+                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            with open(counts) as f:
+                launches = json.load(f)
+            self.check_path("tools classify", launches, ("search",),
+                            absent=("presolve", "resolve"))
+            lines = self.tool(["evaluate", "-x", SYN, "--truth",
+                               sim + ".truth", tsv]).splitlines()
+        if [ln.split("\t")[0] for ln in lines] != EVAL_LINES:
+            fail(f"evaluate printed {lines}")
+        emit(dict(phase="tools", **out, simulate_reads=SIM_READS,
+                  classify="python -m centrifuge_tpu_torch classify "
+                           f"--device {self.dev}",
+                  classify_launches=launches, evaluate=lines,
+                  seconds=round(time.perf_counter() - t0, 3)))
+
+    def prof(self) -> None:
+        """evaluation/prof.py on the 256 Mbp index and full batches of
+        `full`, host and device resolve, launch counts from 0 before
+        each: one JSON line each. It checks that every key is there and
+        the device timings were measured, nothing numeric."""
+        m, st = self.m, self.full_state
+        batches = [b for b in st["batches"] if len(b) == BATCH_READS]
+        for hr in (True, False):
+            path = "host" if hr else "device"
+            m["cuda"].reset_launches()
+            t0 = time.perf_counter()
+            art = m["prof"].profile(
+                st["idx"], batches, host_resolve=hr, device=self.dev,
+                dfm=st["fm"], runs=PROF_RUNS,
+                log=lambda s: print(s, file=sys.stderr, flush=True))
+            secs = time.perf_counter() - t0
+            launches = dict(m["cuda"].LAUNCHES)
+            if hr:
+                self.check_path("prof host-resolve", launches, ("search",),
+                                absent=("presolve", "resolve"))
+            else:
+                self.check_path("prof device-resolve", launches,
+                                DEVICE_RESOLVE_PATH)
+            measured = PROF_DEVICE_KEYS + (() if hr else
+                                           ("device_presolve_ms",))
+            missing = [k for k in PROF_KEYS + measured if k not in art]
+            unmeasured = [k for k in measured if art.get(k) is None]
+            if art["device_idle_share"].get("value") is None:
+                unmeasured.append("device_idle_share")
+            if missing or unmeasured:
+                fail(f"prof ({path} resolve): keys missing {missing}, not "
+                     f"measured {unmeasured}")
+            emit(dict(phase="prof", resolve=path, seconds=round(secs, 3),
+                      launches=launches, **art))
+
+
 def main(argv) -> int:
     if argv:
         print("usage: chip_smoke.py (no arguments)", file=sys.stderr)
@@ -1377,7 +1566,8 @@ def main(argv) -> int:
         return 2
     s = Smoke(m)
     for phase in (s.env, s.kernels, s.kernels_sharded, s.synth,
-                  s.synth_sharded, s.multihost, s.full, s.full_sharded):
+                  s.synth_sharded, s.multihost, s.full, s.full_sharded,
+                  s.tools, s.prof):
         phase()
     emit({"kernels": list(s.rows.values())})
     print(s.smi, flush=True)

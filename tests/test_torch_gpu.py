@@ -725,3 +725,25 @@ def test_mesh_without_peer_access_raises(cuda, port_index, monkeypatch):
                        f"access to cuda:{other.index}"):
         MeshIndex(ShardedFMArrays.build(port_index, 2), mesh)
     assert asked == [(cuda.index, other.index)]
+
+
+@pytest.mark.parametrize("host_resolve", [True, False],
+                         ids=["host_resolve", "device_resolve"])
+def test_prof_times_the_card(cuda, port_index, host_resolve):
+    """evaluation/prof.py on the card (two batches of synth reads): the
+    search launch alone timed by CUDA events, and the device's idle share
+    over a threaded stream, by the profiler or by events, in [0, 1]."""
+    from centrifuge_tpu_torch.evaluation import prof
+    from centrifuge_tpu_torch.io.fastx import read_batch
+    reads = read_batch([os.path.join(SYNTH, "reads.fq")])
+    art = prof.profile(port_index, [reads[:1024], reads[1024:2048]],
+                       host_resolve=host_resolve, device=cuda, runs=1,
+                       steps=False, log=lambda s: None)
+    assert art["device"] == str(cuda) and art["nvidia_smi"]
+    assert art["device_compute_ms"] > 0
+    assert art["device_search_fetch_ms"] > 0
+    assert (art["device_presolve_ms"] is None) == host_resolve
+    share = art["device_idle_share"]
+    assert 0 <= share["value"] <= 1
+    assert 0 <= share["events"]["value"] <= 1
+    assert share["events"]["dispatches"] >= 2

@@ -146,6 +146,30 @@ class ShardedFMArrays:
             wide=bool(wide), ftab_chars=int(idx.ftab_chars))
 
     @staticmethod
+    def from_device_index(fm, n_fm: int) -> "ShardedFMArrays":
+        """The arrays of a built DeviceFMIndex (ops/fm_torch.py), copied to
+        the host, under build's ownership rules: the same blocks, ftab
+        entries and SA samples (ceil(bwt_len / 2^offrate) of them, without
+        the index's 8-padding), padded to a multiple of n_fm."""
+        if (1 << (2 * fm.ftab_chars)) % n_fm != 0:
+            raise ValueError("ftab size must divide the fm axis")
+
+        def host(t):
+            return t.cpu().numpy()
+
+        n_samples = -(-fm.bwt_len >> fm.offrate)
+        return ShardedFMArrays(
+            blocks=_pad_to(host(fm.blocks).view(np.uint32), n_fm),
+            fchr=host(fm.fchr),
+            ftab_tb=np.stack([host(fm.ftab_top), host(fm.ftab_bot)], axis=1),
+            offs=_pad_to(host(fm.offs.reshape(-1)[:n_samples]), n_fm),
+            boundary_rows=host(fm.boundary_rows),
+            boundary_refs=host(fm.boundary_refs), zoff=int(fm.zoff),
+            bwt_len=int(fm.bwt_len), offrate=int(fm.offrate),
+            npat=int(fm.npat), n_fm=n_fm, wide=bool(fm.wide),
+            ftab_chars=int(fm.ftab_chars))
+
+    @staticmethod
     def from_jax(fields) -> "ShardedFMArrays":
         """The port's arrays from the host fields of a JAX ShardedFMArrays
         (a mapping of JAX_FIELDS, e.g. {k: getattr(jsh, k) ...}), read

@@ -28,6 +28,20 @@ JSON line; any failure exits non-zero:
             capped at what the items fill (one block for the 2-lane
             first-hit search); K0's two entries' the same, a warp a
             chunk of 32 items
+  wide_scale  every kernel past 2^31 rows: a wide table of 2^31 + 2^20 + 7
+            rows generated on the card from a seed
+            (evaluation/wide_table.py random_wide_index: random BWT words,
+            occ, fchr and the depth-10 ftab counted from them by the
+            plain versions, '$' and half the boundary rows past 2^31,
+            random SA samples), reads walked back through it by LF; K4's
+            depth-12 build, K0's level 1 and its generic entry on 65,536
+            pairs with the edge rows, K3 on 65,536 rows below and past
+            2^31 and the edges (max_steps 4096 and 1), K1 on 16,384 lanes
+            (deep or not, min_hitlen 16 and 22), K5 then K3 on their hit
+            buffers (khits 5 and 16), K6's search and walk on a (1, 2)
+            mesh of cuda:0 (the second shard past 2^30 rows), also against
+            K1 and K3: exact equality with the plain versions; the table
+            is freed before the next phase
   synth     the classify CLI on the card (host resolve), then
             GPUClassificationPipeline with host_resolve=False (device
             resolve): unpaired output and report and paired output
@@ -81,6 +95,16 @@ JSON line; any failure exits non-zero:
             dispatch and block, the host tail, the main thread's split,
             streams, the device's idle share, steps per lane); each
             line's keys present and its device timings measured
+  harnesses the mesh harnesses, launch counts from 0 before each:
+            parallel/shardbench.py --real (the synth reads through the
+            plain engine and a (1, 1) mesh, rows identical) and --device
+            (K1 against K6 by CUDA events); parallel/shardscale.py on the
+            256 Mbp database over a (2, 2) mesh of cuda:0, byte-equal to
+            full's host-resolve stream; parallel/scaling_bench.py in 1 and
+            then 2 processes on cuda:0 (a (2, 2) mesh each), the merged
+            rows equal to the golden rows, and in 2 processes ((1, 2)
+            meshes) on full's reads, the merged rows equal to full's
+            stream
 
 Then one JSON line of per-kernel numbers, the card's nvidia-smi line,
 and last {"ok": true, "device": {...}}. It takes no arguments.
@@ -139,8 +163,13 @@ SEARCH_MH = 16                 # hit slots per lane in the K1 checks
 BATCH_READS = 32768            # bench.py's batch: 65,536 lanes
 BIGDB_GENOMES = 64             # evaluation/bigdb.py N_GENOMES (256 Mbp)
 ORACLE_READS = 300
+BIGDB_READS = "reads_100k.fq"  # evaluation/bigdb.py's reads
 PROF_RUNS = 2                  # prof's streams of each kind, tail replays
 SIM_READS = 1000               # the tools phase's simulated reads
+# scaling_bench's batch on synth: it divides the 3,000 synth reads and
+# the 1,500 of each of two processes, so no read is left out (on full's
+# 99,968 reads, an eighth of them: a quarter of each process's share)
+SCALING_BATCH = 500
 # the keys every prof line holds, and those that must hold a measurement
 # on the card (with "value" of device_idle_share)
 PROF_KEYS = ("device_search_fetch_ms", "device_compute_ms", "dispatch_ms",
@@ -207,6 +236,12 @@ MESH_HOST_PATH = ("sharded_search",)
 MESH_DEVICE_PATH = ("sharded_search", "sharded_resolve")
 SINGLE_DEVICE = ("rank", "ftab12", "search", "presolve", "resolve")
 MESH_FM = 4                    # full_sharded's (1, 4) mesh
+# wide_scale: its table's seed, K0's and K3's query rows, the reads
+# walked through the table and their length
+WIDE_SEED = 31
+WIDE_ROWS = 65536
+WIDE_READS = 8192
+WIDE_READ_LEN = 150
 NO_LIBRARY = ("no single PyTorch call computes a batched BWT rank, a "
               "greedy FM search, an FM-index ftab extension, an LF walk "
               "to an SA sample, the presolve's pick or their sharded "
@@ -278,12 +313,14 @@ def load_port():
         ClassificationPipeline, PipelineConfig)
     from centrifuge_tpu_torch.cli import classify as cli
     from centrifuge_tpu_torch import __main__ as tools
-    from centrifuge_tpu_torch.evaluation import bigdb, prof, tile_sweep
+    from centrifuge_tpu_torch.evaluation import (bigdb, prof, tile_sweep,
+                                                 wide_table, widebench)
     from centrifuge_tpu_torch.index.cf_io import load_cf_index
     from centrifuge_tpu_torch.io.fastx import read_batch, read_fastx
     from centrifuge_tpu_torch.ops import fm_torch, rank
     from centrifuge_tpu_torch.ops.fm_numpy import FMOracle
-    from centrifuge_tpu_torch.parallel import sharded
+    from centrifuge_tpu_torch.parallel import (scaling_bench, shardbench,
+                                               sharded, shardscale)
     from centrifuge_tpu_torch.report.writers import write_report
     from centrifuge_tpu_torch.utils.fallback import fallbacks
     return dict(np=np, torch=torch, cuda=_cuda, engine=engine,
@@ -291,7 +328,9 @@ def load_port():
                 Pipe=GPUClassificationPipeline,
                 OraclePipe=ClassificationPipeline, Cfg=PipelineConfig,
                 cli=cli, bigdb=bigdb, tile_sweep=tile_sweep, tools=tools,
-                prof=prof,
+                prof=prof, wide_table=wide_table, widebench=widebench,
+                shardbench=shardbench,
+                shardscale=shardscale, scaling_bench=scaling_bench,
                 load_cf_index=load_cf_index,
                 read_batch=read_batch, read_fastx=read_fastx,
                 ClsCfg=ClassifierConfig,
@@ -855,6 +894,139 @@ class Smoke:
                   launches="one per dp row per call",
                   cross_card=cross))
 
+    def wide_scale(self) -> None:
+        """Every kernel past 2^31 rows, on a wide table of
+        2^31 + 2^20 + 7 rows made on the card from a seed
+        (evaluation/wide_table.py random_wide_index: random BWT words, the
+        occ, fchr and depth-10 ftab counted from them by the plain
+        versions, '$' among the last 2^20 rows) and reads walked back
+        through it by LF (walk_reads), each kernel against its plain
+        version, exact integer equality: K4's depth-12 build; K0's level
+        1 on the 2^20 depth-10 ranges and its generic entry on 65,536
+        (row, char) pairs with the edge rows; K3 on 65,536 rows below and
+        past 2^31 and the edge rows at the full budget and max_steps=1; K1
+        on the reads' lanes, deep or not, min_hitlen 16 and 22; K5 then K3
+        on their hit buffers; K6's search and walk on a (1, 2) mesh of
+        cuda:0, whose second shard starts past 2^30 rows, also against K1
+        and K3. The table is freed at the end."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        line = self.wide_checks()
+        line.update(
+            max_memory_allocated=int(torch.cuda.max_memory_allocated()),
+            seconds=round(time.perf_counter() - t0, 3))
+        torch.cuda.empty_cache()     # the table went with wide_checks
+        emit(line)
+
+    def wide_checks(self) -> dict:
+        """wide_scale's checks; returns its line."""
+        m, torch, np = self.m, self.torch, self.np
+        wt, fmt, rk, eng_mod, shd = (m["wide_table"], m["fm_torch"],
+                                     m["rank"], m["engine"], m["sharded"])
+        n = wt.WIDE_SCALE_LEN
+        fm, gen_s = self.time_host(lambda: wt.random_wide_index(
+            n, WIDE_SEED, self.dev))
+        if fm.zoff < (1 << 31) or fm.boundary_rows[-1] < (1 << 31):
+            fail(f"wide_scale: '$' at {fm.zoff} or the last boundary row "
+                 "below 2^31")
+        checks = []
+
+        def equal(what, got, want):
+            self.equal(f"wide_scale {what}", got, want)
+            checks.append(what)
+
+        # K4 (after K0's level 1): the depth-12 ftab the deep search reads
+        t0v, b0v = fm.ftab_top[:fmt.N10], fm.ftab_bot[:fmt.N10]
+        fm.ftab12_rows = torch.zeros((fmt.N12 // 8, 40), dtype=torch.int32,
+                                     device=self.dev)
+        fmt.build_ftab12(fm.blocks, fm.fchr, fm.zoff, t0v, b0v,
+                         fm.ftab12_rows)
+        plain = torch.zeros_like(fm.ftab12_rows)
+        fmt.ftab12_plain(fm.blocks, fm.fchr, fm.zoff, t0v, b0v, plain)
+        equal("ftab12", [fm.ftab12_rows], [plain])
+        del plain
+        l1 = (fm.blocks, fm.fchr, fm.zoff, t0v, b0v)
+        equal("level 1", list(rk.level1(*l1)), list(rk.level1_plain(*l1)))
+        # K0's generic entry: the edges, then random rows below and past
+        g = np.random.default_rng(WIDE_SEED)
+        edges = [0, (1 << 31) - 1, 1 << 31, fm.zoff, fm.zoff + 1, n - 1, n]
+        half = (WIDE_ROWS - len(edges)) // 2
+        rows = np.concatenate([edges, g.integers(0, 1 << 31, half),
+                               g.integers(1 << 31, n + 1,
+                                          WIDE_ROWS - len(edges) - half)])
+        rows = torch.from_numpy(rows.astype(np.int64)).to(self.dev)
+        chars = torch.from_numpy(g.integers(0, 4, WIDE_ROWS).astype(
+            np.int32)).to(self.dev)
+        want = rk.rank_plain(fm.blocks, fm.zoff, rows, chars)
+        equal("rank", [rk.rank(fm.blocks, fm.zoff, rows, chars)], [want])
+        equal("lf", [rk.lf(fm.blocks, fm.fchr, fm.zoff, rows, chars)],
+              [fm.fchr[chars.to(torch.int64)] + want])
+        # K3: the edge rows (no row n: rows index the table), the boundary
+        # rows, random rows below and past 2^31
+        br = fm.boundary_rows.cpu().numpy()
+        qrows = np.concatenate([edges[:-1], br, g.integers(0, 1 << 31, half),
+                                g.integers(1 << 31, n, WIDE_ROWS - half)])
+        qrows = torch.from_numpy(qrows.astype(np.int64)).to(self.dev)
+        k3 = {}
+        for steps in (fmt.RESOLVE_MAX_STEPS, 1):
+            k3[steps] = fmt.resolve_rows(fm, qrows, steps)
+            equal(f"resolve max_steps={steps}", [k3[steps]],
+                  [fmt.resolve_rows_plain(fm, qrows, steps)])
+        # K1 on the walked reads' lanes (each read and its reverse
+        # complement), K5 then K3 on the deep min_hitlen-22 hit buffers
+        codes = wt.walk_reads(fm, WIDE_READS, WIDE_READ_LEN, WIDE_SEED)
+        seqs = [s for r in codes for s in (r, (3 - r[::-1]).astype(np.uint8))]
+        hits = None
+        for deep in (False, True):
+            for mhl in (16, 22):
+                eng = eng_mod.BatchSearchEngine(fm, mhl)
+                reads, lens, st, lmax = self.packed_lanes(eng, seqs)
+                args = (fm, reads, lens, st, SEARCH_MH, mhl, eng.increment,
+                        False, deep)
+                got = eng_mod.search_lanes(*args)
+                equal(f"search deep={deep} mhl={mhl}", got,
+                      eng_mod.search_plain(*args))
+                if deep and mhl == 22:
+                    hits = got
+        longest = int(hits[3].max())
+        if longest < WIDE_READ_LEN // 2:
+            fail(f"wide_scale: the longest hit is {longest} bases")
+        for khits in (5, 16):
+            pre = (fm, hits[0], hits[1], hits[3], khits,
+                   m["ClsCfg"](khits=khits).ihits(False), 22,
+                   eng_mod.presolve_rk(khits))
+            equal(f"presolve khits={khits}", list(eng_mod.presolve_lanes(*pre)),
+                  list(eng_mod.presolve_plain(*pre)))
+        # K6 on a (1, 2) mesh of cuda:0: its shards' tables split at
+        # nblk_per block rows, past 2^30 rows
+        index = shd.MeshIndex(shd.ShardedFMArrays.from_device_index(fm, 2),
+                              self.mesh(1, 2))
+        bases = [512 * s.blk_base for s in index.rows[0].shards]
+        if bases[1] < (1 << 30):
+            fail(f"wide_scale: the second shard starts at row {bases[1]}")
+        eng = shd.ShardedSearchEngine(index)
+        reads, lens, st, _ = self.packed_lanes(eng, seqs)
+        args = (reads, lens, st, SEARCH_MH, 22, eng.increment, False)
+        got = shd.sharded_search(index, *args)
+        equal("sharded search", got, shd.sharded_search_plain(index, *args))
+        equal("sharded search vs K1", got,
+              eng_mod.search_lanes(fm, *args, False))
+        for steps in (shd.SHARDED_RESOLVE_MAX_STEPS, 1):
+            got = shd.sharded_resolve(index, qrows, steps)
+            equal(f"sharded resolve max_steps={steps}", [got],
+                  [shd.sharded_resolve_plain(index, qrows, steps)])
+        equal("sharded resolve vs K3", [shd.sharded_resolve(index, qrows)],
+              [k3[fmt.RESOLVE_MAX_STEPS]])
+        return dict(
+            phase="wide_scale", bwt_len=n, zoff=fm.zoff,
+            boundary_rows=br.tolist(), generate_s=round(gen_s / 1e3, 3),
+            blocks_bytes=fm.blocks.nbytes, samples_bytes=fm.offs.nbytes,
+            ftab12_bytes=fm.ftab12_rows.nbytes, reads=WIDE_READS,
+            read_len=WIDE_READ_LEN, lanes=len(seqs), longest_hit=longest,
+            rows=WIDE_ROWS, shard_base_rows=bases, checks=checks,
+            result="every kernel equal to its plain version")
+
     def synth(self) -> None:
         m = self.m
         base = os.path.join(FIX, "synth")
@@ -976,37 +1148,11 @@ class Smoke:
         each classifying its half of the synth reads over a (1, 2) wide
         mesh (parallel/multihost.py); the merged rows equal the golden
         rows."""
-        import socket
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        procs = []
-        with tempfile.TemporaryDirectory() as td:
-            outs = [os.path.join(td, f"shard{p}.tsv") for p in range(2)]
-            t0 = time.perf_counter()
-            try:
-                for pid, out in enumerate(outs):
-                    procs.append(subprocess.Popen(
-                        [sys.executable, "-c", MULTIHOST_WORKER, REPO,
-                         str(pid), "2", str(port), out, str(self.dev)],
-                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                        text=True))
-                results = [p.communicate(timeout=300) for p in procs]
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            for p, (so, se) in zip(procs, results):
-                if p.returncode:
-                    fail(f"multihost worker exit {p.returncode}: "
-                         f"{se[-2000:]}")
-            launches = [json.loads(so.strip().splitlines()[-1])
-                        for so, _ in results]
-            merged = []
-            for out in outs:
-                with open(out) as f:
-                    merged += f.read().splitlines()
+        t0 = time.perf_counter()
+        launches, merged = self.processes(
+            2, lambda pid, port, out: [
+                sys.executable, "-c", MULTIHOST_WORKER, REPO, str(pid), "2",
+                str(port), out, str(self.dev)], "multihost worker")
         for ln in launches:
             self.check_path("multihost", ln, MESH_DEVICE_PATH)
         with open(os.path.join(FIX, "golden_output.tsv")) as f:
@@ -1031,7 +1177,7 @@ class Smoke:
         t0 = time.perf_counter()
         idx = m["load_cf_index"](base)
         load_s = time.perf_counter() - t0
-        recs = m["read_batch"]([os.path.join(CACHE, "reads_100k.fq")])
+        recs = m["read_batch"]([os.path.join(CACHE, BIGDB_READS)])
         batches = [recs[i: i + BATCH_READS]
                    for i in range(0, len(recs), BATCH_READS)]
 
@@ -1212,7 +1358,8 @@ class Smoke:
         # what full_sharded runs again over the mesh, and prof profiles
         self.full_state = dict(idx=idx, fm=fm, batches=batches, rows=rows,
                                hits=[t.clone() for t in got], flat=flat,
-                               tidx=tidx)
+                               tidx=tidx, base=base, header=pipe.formatter
+                               .header())
 
         # ---- K4 against its plain version: its own launch (level 2),
         # and the whole build (K0's level-1 entry, then K4) ----
@@ -1549,6 +1696,123 @@ class Smoke:
                       launches=launches, **art))
 
 
+    def harnesses(self) -> None:
+        """The mesh harnesses on the card, launch counts from 0 before
+        each: shardbench --real (the plain engine against a (1, 1) mesh on
+        the synth reads, rows identical) and --device (K1 and K6 on the
+        same lanes by CUDA events); shardscale on the 256 Mbp database of
+        `full` over a (2, 2) mesh of cuda:0, byte-equal to full's
+        host-resolve stream; scaling_bench with 1 and then 2 processes
+        on cuda:0, a (2, 2) mesh each, on the synth reads, the merged rows
+        equal to the golden rows, and with 2 processes, a (1, 2) mesh
+        each, on full's reads, the merged rows equal to full's stream."""
+        m, st = self.m, self.full_state
+        t0 = time.perf_counter()
+        real = m["shardbench"].leg_real(self.dev)
+        if not real["rows_identical"]:
+            fail("shardbench --real: the (1, 1) mesh's rows differ")
+        for k in ("search", "sharded_search"):
+            if real["launches"][k] <= 0:
+                fail(f"shardbench --real launched no {k}")
+        emit(dict(phase="harnesses", harness="shardbench --real", **real))
+        emit(dict(phase="harnesses", harness="shardbench --device",
+                  **m["shardbench"].leg_device(self.dev)))
+        nreads = sum(len(b) for b in st["batches"])
+        with tempfile.TemporaryDirectory() as td:
+            tsv = os.path.join(td, "full.tsv")
+            with open(tsv, "w") as f:
+                f.write("\n".join([st["header"]] + st["rows"]) + "\n")
+            line = m["shardscale"].run(types.SimpleNamespace(
+                index_base=st["base"], reads=os.path.join(CACHE, BIGDB_READS),
+                dp=2, fm=2, reads_count=nreads, batch=BATCH_READS,
+                ref_tsv=tsv, ref_binary=None, device=str(self.dev)))
+        if line["parity_vs_reference_binary"] is not True:
+            fail("shardscale: the (2, 2) mesh's stream differs from the "
+                 "single-device host-resolve stream")
+        # a batch's search is one launch a dp row, an overflow re-run one
+        # more; the host walk resolves the rows
+        if line["k6_launches"]["sharded_search"] < 2 * line["batches"] \
+                or line["k6_launches"]["sharded_resolve"]:
+            fail(f"shardscale launches {line['k6_launches']} for "
+                 f"{line['batches']} batches over 2 dp rows")
+        emit(dict(phase="harnesses", harness="shardscale",
+                  rows="byte-equal to the single-device host-resolve stream",
+                  **line))
+        with open(os.path.join(FIX, "golden_output.tsv")) as f:
+            golden = f.read().splitlines()[1:]
+        # synth in 1 and 2 processes, (2, 2) meshes; then the 256 Mbp
+        # reads in 2 processes, (1, 2) meshes, against full's stream
+        runs = [(1, SYN, os.path.join(FIX, "reads.fq"), SCALING_BATCH, 4,
+                 golden, "the golden rows"),
+                (2, SYN, os.path.join(FIX, "reads.fq"), SCALING_BATCH, 4,
+                 golden, "the golden rows"),
+                (2, st["base"], os.path.join(CACHE, BIGDB_READS),
+                 nreads // 8, 2, st["rows"],
+                 "the single-device host-resolve stream")]
+        for nprocs, index, reads, batch, ndev, want, what in runs:
+            lines, merged = self.scaling_run(nprocs, index, reads, batch,
+                                             ndev)
+            if merged != want:
+                fail(f"scaling_bench ({nprocs} processes, {index}): the "
+                     f"merged rows differ from {what}")
+            for ln in lines:
+                self.check_path(f"scaling_bench ({nprocs} processes)",
+                                ln["launches"], MESH_DEVICE_PATH)
+            emit(dict(phase="harnesses", harness="scaling_bench",
+                      processes=nprocs, index=index,
+                      rows=f"merged rows equal {what}", **lines[0],
+                      launches_by_process=[ln["launches"] for ln in lines]))
+        emit(dict(phase="harnesses", harness="all",
+                  seconds=round(time.perf_counter() - t0, 3)))
+
+    def scaling_run(self, nprocs: int, index: str, reads: str, batch: int,
+                    ndev: int):
+        """scaling_bench's per-process leg in nprocs processes on cuda:0,
+        each over a mesh of ndev entries, 2 fm shards a dp row: (each
+        process's JSON line, their rows in process order)."""
+        return self.processes(nprocs, lambda pid, port, out: [
+            sys.executable, "-m", "centrifuge_tpu_torch.parallel.scaling_bench",
+            "--coordinator", f"localhost:{port}", "--nprocs", str(nprocs),
+            "--procid", str(pid), "--local-devices", str(ndev), "--n-fm", "2",
+            "-x", index, "-U", reads, "--batch", str(batch), "--out", out,
+            "--device", str(self.dev)], "scaling_bench")
+
+    @staticmethod
+    def processes(n: int, argv, what: str):
+        """n processes, argv(pid, port, out) each, joined over a free
+        localhost port and each writing its rows to out: (the last JSON
+        line of each one's output, their rows in process order). Fails on
+        a nonzero exit; kills what is left on the way out."""
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = []
+        with tempfile.TemporaryDirectory() as td:
+            outs = [os.path.join(td, f"shard{p}.tsv") for p in range(n)]
+            try:
+                for pid, out in enumerate(outs):
+                    procs.append(subprocess.Popen(
+                        argv(pid, port, out), cwd=REPO,
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True))
+                results = [p.communicate(timeout=300) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for p, (so, se) in zip(procs, results):
+                if p.returncode:
+                    fail(f"{what} exit {p.returncode}: {se[-2000:]}")
+            merged = []
+            for out in outs:
+                with open(out) as f:
+                    merged += f.read().splitlines()
+        return [json.loads(so.strip().splitlines()[-1])
+                for so, _ in results], merged
+
+
 def main(argv) -> int:
     if argv:
         print("usage: chip_smoke.py (no arguments)", file=sys.stderr)
@@ -1565,9 +1829,9 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     s = Smoke(m)
-    for phase in (s.env, s.kernels, s.kernels_sharded, s.synth,
-                  s.synth_sharded, s.multihost, s.full, s.full_sharded,
-                  s.tools, s.prof):
+    for phase in (s.env, s.kernels, s.kernels_sharded, s.wide_scale,
+                  s.synth, s.synth_sharded, s.multihost, s.full,
+                  s.full_sharded, s.tools, s.prof, s.harnesses):
         phase()
     emit({"kernels": list(s.rows.values())})
     print(s.smi, flush=True)

@@ -89,21 +89,23 @@ def _windows(codes: torch.Tensor):
     of the first N among the next 10 chars (10 if none), and whether the
     next 12 chars hold an N."""
     L, P = codes.shape
-    pad = torch.zeros((L, 12), dtype=torch.int64, device=codes.device)
-    full = torch.cat([codes, pad], dim=1)
+    # int32 arithmetic (a 12-char window is 24 bits), int64 results
+    i32 = dict(dtype=torch.int32, device=codes.device)
+    full = torch.cat([codes.to(torch.int32), torch.zeros((L, 12), **i32)],
+                     dim=1)
     cl = full.clamp(max=3)
     isn = full > 3
-    fi12 = torch.zeros((L, P), dtype=torch.int64, device=codes.device)
-    first_n = torch.full((L, P), FTAB_CHARS, dtype=torch.int64,
-                         device=codes.device)
+    fi12 = torch.zeros((L, P), **i32)
+    first_n = torch.full((L, P), FTAB_CHARS, **i32)
     for j in range(11, -1, -1):
         fi12 |= cl[:, j: j + P] << (2 * j)
         if j < FTAB_CHARS:
-            first_n = torch.where(isn[:, j: j + P], j, first_n)
+            first_n.masked_fill_(isn[:, j: j + P], j)
     n12 = isn[:, 0:P].clone()
     for j in range(1, 12):
         n12 |= isn[:, j: j + P]
-    return fi12 & 0xFFFFF, fi12, first_n, n12
+    fi12 = fi12.to(torch.int64)
+    return fi12 & 0xFFFFF, fi12, first_n.to(torch.int64), n12
 
 
 def _note(stats: dict, **parts: torch.Tensor) -> None:

@@ -70,7 +70,7 @@ class GPUClassificationPipeline:
     def __init__(self, idx: CFIndex, cfg: Optional[PipelineConfig] = None,
                  device="cuda", wide=None,
                  dfm: Optional[DeviceFMIndex] = None, mesh=None,
-                 n_fm: int = None):
+                 n_fm: int = None, sharded=None):
         """device: where the index and the search run ("cuda" by default;
         "cpu" runs the plain PyTorch versions). A prebuilt `dfm` skips the
         packing and upload, so several pipelines can share one index.
@@ -78,10 +78,13 @@ class GPUClassificationPipeline:
         mesh: a parallel.sharded.Mesh (make_mesh) of devices of the type of
         `device`: the search and the device resolve run over it, the index
         split n_fm ways (default: the mesh's fm axis). With host_resolve
-        the host walk reads the sharded arrays' blocks."""
+        the host walk reads the sharded arrays' blocks. A prebuilt
+        `sharded` (ShardedFMArrays of idx, split as the mesh's fm axis)
+        skips the split (n_fm and wide are its own), so several mesh
+        pipelines can share one, as they share a dfm."""
         cfg = cfg or PipelineConfig()
         if mesh is not None:
-            self._init_mesh(idx, cfg, device, mesh, n_fm, wide)
+            self._init_mesh(idx, cfg, device, mesh, n_fm, wide, sharded)
             return
         if dfm is None:
             dfm = DeviceFMIndex.build(idx, device=device, wide=wide,
@@ -105,7 +108,8 @@ class GPUClassificationPipeline:
                 from ..utils.fallback import warn_fallback
                 warn_fallback("fmwalk.cpp (HostResolver)", e)
 
-    def _init_mesh(self, idx, cfg, device, mesh, n_fm, wide) -> None:
+    def _init_mesh(self, idx, cfg, device, mesh, n_fm, wide,
+                   sharr=None) -> None:
         """The mesh branch of tpu_pipeline.py:54-88."""
         import torch
         from ..parallel.sharded import (MeshIndex, ShardedFMArrays,
@@ -114,8 +118,8 @@ class GPUClassificationPipeline:
         kind = torch.device(device).type
         if any(d.type != kind for row in mesh.devices for d in row):
             raise ValueError(f"the mesh's devices are not {kind} devices")
-        n_fm = n_fm or mesh.n_fm
-        sharr = ShardedFMArrays.build(idx, n_fm, wide=wide)
+        if sharr is None:
+            sharr = ShardedFMArrays.build(idx, n_fm or mesh.n_fm, wide=wide)
         index = MeshIndex(sharr, mesh)
         engine = ShardedSearchEngine(index, cfg.classifier.min_hitlen)
         self._init_with_engine(idx, cfg, engine, make_sharded_resolver(index))
@@ -126,8 +130,13 @@ class GPUClassificationPipeline:
         if cfg.host_resolve:
             try:
                 from ..native.fmwalk import HostResolver
-                # the fm-padded blocks: HostResolver counts the real ones
-                self.resolver = HostResolver(sharr.blocks, idx, sharr.wide)
+                # the fm-padded blocks: HostResolver counts the real ones;
+                # pipelines sharing the arrays share one resolver
+                hr = getattr(sharr, "_host_resolver", None)
+                if hr is None:
+                    hr = HostResolver(sharr.blocks, idx, sharr.wide)
+                    sharr._host_resolver = hr
+                self.resolver = hr
             except (ImportError, OSError, RuntimeError) as e:
                 from ..utils.fallback import warn_fallback
                 warn_fallback("fmwalk.cpp (sharded HostResolver)", e)

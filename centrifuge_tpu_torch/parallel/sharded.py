@@ -406,19 +406,21 @@ class ShardTableReads:
 
     def _sum(self, keys: torch.Tensor, base_of, per: int, read) -> list:
         """Per shard: the lanes whose key (block, entry or sample index)
-        the shard owns, read there; summed into zero-filled outputs."""
+        the shard owns, read there and written into zero-filled outputs
+        (the shards' key ranges are disjoint: a lane has one owner at
+        most, and one no shard owns reads 0)."""
         out = None
         for k, s in enumerate(self.row.shards):
             local = keys - base_of(s)
             own = torch.nonzero((local >= 0) & (local < per))[:, 0]
+            if out is not None and own.numel() == 0:
+                continue
             vals = read(k, s, own, local[own].to(s.device))
             if out is None:
                 out = [torch.zeros(keys.shape, dtype=torch.int64,
                                    device=keys.device) for _ in vals]
             for o, v in zip(out, vals):
-                part = torch.zeros_like(o)
-                part[own] = v.to(o.device, torch.int64)
-                o += part
+                o[own] = v.to(o.device, torch.int64)
         return out
 
     def rank(self, rows: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:

@@ -83,6 +83,19 @@ JSON line; any failure exits non-zero:
             single-device host-resolve stream; K6's search on the first
             batch and its walk on that batch's presolve rows, timed
             beside their plain versions and bounds
+  parity    the reference's parity surface: the 30 cases of
+            PARITY_CASES (each the argv of a JAX test of the classify CLI
+            and its goldens, from tests/test_cli.py, test_parity.py and
+            test_parity_configs.py) through the classify CLI on six
+            routes (PARITY_ROUTES: host and device resolve on one card,
+            the wide layout forced on both, a (1, 2) mesh of cuda:0 on
+            both), every output byte-equal to its golden, one line a
+            route, each route's kernels launched and the other path's
+            not; then the 256 Mbp database of `full` at k 1, k 20 and
+            min-hitlen 16 over its reads and 16,384 pairs simulated from
+            its genomes at k 1, each streamed on the host then the
+            device resolve: byte-equal, the first 300 reads or pairs
+            equal to the host oracle under the same settings, reads/s
   tools     the port's tool surface (python -m centrifuge_tpu_torch
             <tool>) on the synth fixture: build byte-equal to
             synth.{1..4}.cf; inspect, kreport and promote byte-equal to
@@ -116,6 +129,10 @@ its lookups touch, once) over the HBM rate, and its rank arithmetic
 over the card's integer and popcount issue rates.
 """
 
+import contextlib
+import dataclasses
+import gzip
+import io
 import json
 import math
 import os
@@ -124,6 +141,7 @@ import sys
 import tempfile
 import time
 import types
+from typing import NamedTuple, Optional, Tuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(REPO, "tests", "fixtures", "synth")
@@ -164,6 +182,14 @@ BATCH_READS = 32768            # bench.py's batch: 65,536 lanes
 BIGDB_GENOMES = 64             # evaluation/bigdb.py N_GENOMES (256 Mbp)
 ORACLE_READS = 300
 BIGDB_READS = "reads_100k.fq"  # evaluation/bigdb.py's reads
+# the parity phase at 256 Mbp: the classifier settings of the
+# configurations streamed on both resolve paths, and the pairs simulated
+# from bigdb's genomes (evaluation/simulate.py; file prefix, count,
+# seed) streamed at k 1, PARITY_PAIRS_BATCH pairs a batch
+PARITY_FULL = (("k1", dict(khits=1)), ("k20", dict(khits=20)),
+               ("minhit16", dict(min_hitlen=16)))
+PARITY_PAIRS = ("bigdb_pairs_16k", 16384, 29)
+PARITY_PAIRS_BATCH = 4096
 PROF_RUNS = 2                  # prof's streams of each kind, tail replays
 SIM_READS = 1000               # the tools phase's simulated reads
 # scaling_bench's batch on synth: it divides the 3,000 synth reads and
@@ -299,13 +325,247 @@ sys.exit(code)
 """
 
 
+# ---- the reference's parity surface ----
+
+class ParityCase(NamedTuple):
+    """A configuration of the reference's parity surface, held to the
+    goldens of the JAX package's tests (tests/test_cli.py,
+    test_parity.py, test_parity_configs.py), which the reference
+    binaries wrote."""
+    name: str
+    # classify's argv after `-x <index> -S {td}/out.tsv`: {fx} is the
+    # fixture's directory, {td} the run's; None: the pipeline-level case
+    # (nfail_paired, test_parity_configs.py:65-86)
+    argv: Optional[Tuple[str, ...]]
+    # (file the run writes in {td}, its golden in {fx}); a golden of None
+    # is an empty file (gunzipped where the name ends in .gz); "<stderr>"
+    # is the run's standard error
+    goldens: Tuple[Tuple[str, Optional[str]], ...]
+    # the case changes what the kernels see (read lengths, empty lanes,
+    # the mate layout, the hit count or length): routes c and d run it
+    device_work: bool
+    fixture: str = "synth"
+
+
+PARITY_INDEX = {"synth": "synth", "example": "test"}
+_U = ("-U", "{fx}/reads.fq")
+_P = ("-1", "{fx}/reads_1.fq", "-2", "{fx}/reads_2.fq")
+_NO_REPORT = ("--report-file", "")
+_REPORT = ("--report-file", "{td}/rep.tsv")
+# tests/test_cli.py QUAL_COLS
+QUAL_COLS = ("readID,seqID,taxID,score,2ndBestScore,hitLength,queryLength,"
+             "numMatches,readQual")
+
+
+def _tsv(name: str, argv, device_work: bool) -> ParityCase:
+    """A case whose one output is the TSV, held to golden_<name>.tsv."""
+    return ParityCase(name, tuple(argv) + _NO_REPORT,
+                      (("out.tsv", f"golden_{name}.tsv"),), device_work)
+
+
+PARITY_CASES = (
+    ParityCase("output", _U + _REPORT, (("out.tsv", "golden_output.tsv"),
+                                        ("rep.tsv", "golden_report.tsv")),
+               True),
+    *(_tsv(f"k{k}", _U + ("-k", str(k)), True) for k in (1, 3, 20)),
+    _tsv("minhit16", _U + ("--min-hitlen", "16"), True),
+    _tsv("notraverse", _U + ("--no-traverse",), False),
+    _tsv("host100", _U + ("--host-taxids", "100"), False),
+    _tsv("excl", _U + ("--exclude-taxids", "1000,1001"), False),
+    _tsv("rankgenus", _U + ("--classification-rank", "genus"), False),
+    _tsv("nofw", _U + ("--nofw", "--norc"), True),
+    ParityCase("paired", _P + _REPORT,
+               (("out.tsv", "golden_paired.tsv"),
+                ("rep.tsv", "golden_paired_report.tsv")), True),
+    _tsv("paired_k1", _P + ("-k", "1"), True),
+    _tsv("qseq", ("--qseq", "-U", "{fx}/reads.qseq"), False),
+    _tsv("raw", ("-r", "-U", "{fx}/reads.raw"), False),
+    _tsv("sample50", _U + ("--sample", "0.5"), False),
+    _tsv("sample50_u1500", _U + ("--sample", "0.5", "-u", "1500"), False),
+    _tsv("nceil", ("-U", "{fx}/reads_n.fq", "--n-ceil", "L,0,0.02"), True),
+    _tsv("nceil_c3", ("-U", "{fx}/reads_n.fq", "--n-ceil", "C,3"), True),
+    _tsv("qcfilter", ("--qseq", "-U", "{fx}/reads_filter.qseq",
+                      "--qc-filter"), True),
+    _tsv("tab12_mixed", ("--12", "{fx}/reads_mixed.tab"), True),
+    _tsv("cols", _U + ("-u", "300", "--tab-fmt-cols",
+                       "readID,taxID,taxRank,taxName,score,readSeq"), False),
+    _tsv("paired_seqcols", _P + ("--tab-fmt-cols",
+                                 "readID,seqID,taxID,score,readSeq,readQual"),
+         False),
+    _tsv("trim", _U + ("-5", "5", "-3", "7"), True),
+    *(_tsv(enc, (flag, "-U", f"{{fx}}/reads_{enc}.fq", "--tab-fmt-cols",
+                 QUAL_COLS), False)
+      for enc, flag in (("phred64", "--phred64"),
+                        ("solexa", "--solexa-quals"),
+                        ("intq", "--int-quals"))),
+    ParityCase("tee", _U + ("--un", "{td}/un.fq", "--al", "{td}/al.fq")
+               + _NO_REPORT, (("out.tsv", "golden_output.tsv"),
+                              ("un.fq", "golden_tee_un.fq"),
+                              ("al.fq", "golden_tee_al.fq")), False),
+    ParityCase("tee_conc", _P + ("--al-conc", "{td}/alc.fq",
+                                 "--un-conc-gz", "{td}/unc.fq.gz")
+               + _NO_REPORT, (("out.tsv", "golden_paired.tsv"),
+                              ("alc.1.fq", "golden_tee_alc.1.fq"),
+                              ("alc.2.fq", "golden_tee_alc.2.fq"),
+                              ("unc.fq.1.gz", None)), False),
+    ParityCase("nfail_paired", None,
+               (("out.tsv", "golden_nfail_paired.tsv"),), True),
+    ParityCase("example", ("-f", "-U", "{fx}/reads.fa") + _REPORT,
+               (("out.tsv", "golden_output.tsv"),
+                ("rep.tsv", "golden_report.tsv"),
+                ("<stderr>", "golden_stderr.txt")), False, "example"),
+)
+# the routes through the kernels: (layout, host_resolve). a: the CLI as
+# a user runs it (K1; K0 and K4 at load on a deep index); b: the device
+# resolve (K1, K5 and K3 in each dispatch, the tail's K3 and first-hit
+# K1); c: the wide layout forced (every kernel's int64 rows); d: a (1, 2)
+# mesh (K6's search, and its walk on the device resolve)
+PARITY_ROUTES = {"a": ("narrow", True), "b": ("narrow", False),
+                 "c-host": ("wide", True), "c-device": ("wide", False),
+                 "d-host": ("mesh", True), "d-device": ("mesh", False)}
+PARITY_MESH = (1, 2)
+
+
+def parity_pipe(m, route: str, shared: dict, made: list, device):
+    """A stand-in for the classify CLI's GPUClassificationPipeline(idx,
+    cfg, device=...) (cli/classify.py) that builds the same class on one
+    route: cfg's host_resolve set by the route, the index shared through
+    `shared` (one DeviceFMIndex a layout and one ShardedFMArrays an
+    index, built at first use). Each pipeline made is appended to
+    `made`."""
+    layout, host_resolve = PARITY_ROUTES[route]
+
+    def make(idx, cfg=None, device=device):
+        cfg = dataclasses.replace(cfg or m["Cfg"](),
+                                  host_resolve=host_resolve)
+        key = (layout, idx.bwt_len)
+        if layout == "mesh":
+            if key not in shared:
+                shared[key] = m["sharded"].ShardedFMArrays.build(
+                    idx, PARITY_MESH[1])
+            pipe = m["Pipe"](idx, cfg, device=device, sharded=shared[key],
+                             mesh=m["sharded"].make_mesh(
+                                 *PARITY_MESH,
+                                 [device] * math.prod(PARITY_MESH)))
+        else:
+            if key not in shared:
+                shared[key] = m["fm_torch"].DeviceFMIndex.build(
+                    idx, device=device, wide=layout == "wide")
+            pipe = m["Pipe"](idx, cfg, device=device, dfm=shared[key])
+        made.append(pipe)
+        return pipe
+
+    return make
+
+
+def _first_diff(got: bytes, want: bytes) -> str:
+    a, b = got.splitlines(), want.splitlines()
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    return (f"line {i + 1}: {a[i] if i < len(a) else b'<end>'!r} vs "
+            f"{b[i] if i < len(b) else b'<end>'!r}")
+
+
+def _route_fault(route: str, made: list) -> Optional[str]:
+    """What a route's pipelines did not run as the route says: the host
+    walk (HostResolver) on the host resolve and never on the device
+    resolve, the wide layout, the mesh."""
+    layout, host_resolve = PARITY_ROUTES[route]
+    if not made:
+        return "the CLI made no pipeline"
+    for p in made:
+        host = type(p.resolver).__name__ == "HostResolver"
+        if host != host_resolve:
+            return f"resolver {type(p.resolver).__name__}"
+        if (getattr(p, "mesh_index", None) is not None) != (
+                layout == "mesh"):
+            return "mesh"
+        wide = p.mesh_index.wide if layout == "mesh" else p.dfm.wide
+        if wide != (layout == "wide"):
+            return f"wide={wide}"
+    return None
+
+
+def run_parity_case(m, case: ParityCase, route: str, shared: dict, device,
+                    td: str) -> Optional[str]:
+    """Run one case on one route in directory td: None when every output
+    equals its golden byte for byte, else the first difference. The CLI
+    runs in this process with parity_pipe standing in for its
+    GPUClassificationPipeline."""
+    fx = os.path.join(REPO, "tests", "fixtures", case.fixture)
+    made = []
+    make = parity_pipe(m, route, shared, made, device)
+    idx_base = os.path.join(fx, PARITY_INDEX[case.fixture])
+    what = f"{case.name} on route {route}"
+    if case.argv is None:
+        return _nfail_paired(m, fx, idx_base, make, device, made, route,
+                             what)
+    argv = ["-x", idx_base, "-S", os.path.join(td, "out.tsv"),
+            "--device", str(device)] + [a.format(fx=fx, td=td)
+                                        for a in case.argv]
+    gp = m["gpu_pipeline"]
+    real, err = gp.GPUClassificationPipeline, io.StringIO()
+    gp.GPUClassificationPipeline = make
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = m["cli"].run(argv)
+    finally:
+        gp.GPUClassificationPipeline = real
+    if rc:
+        return f"{what}: exit {rc}: {err.getvalue()[-1000:]}"
+    fault = _route_fault(route, made)
+    if fault:
+        return f"{what}: the route did not run as set ({fault})"
+    for name, gold in case.goldens:
+        want = b""
+        if gold is not None:
+            with open(os.path.join(fx, gold), "rb") as f:
+                want = f.read()
+        if name == "<stderr>":
+            # the EM lines; the first names the report path given
+            got = err.getvalue().encode().splitlines(True)[:4]
+            lines = want.splitlines(True)
+            want = b"".join([f"report file {td}/rep.tsv\n".encode()]
+                            + lines[1:4])
+            got = b"".join(got)
+        else:
+            opener = gzip.open if name.endswith(".gz") else open
+            with opener(os.path.join(td, name), "rb") as f:
+                got = f.read()
+        if got != want:
+            return f"{what}: {name} differs from {gold}: " \
+                   + _first_diff(got, want)
+    return None
+
+
+def _nfail_paired(m, fx, idx_base, make, device, made, route, what):
+    """Case nfail_paired at the pipeline level, as the JAX test runs it:
+    pairs whose mate 1 fails the N filter at k 20, with the native
+    assigner and with the host pipeline's (use_native False)."""
+    idx = m["load_cf_index"](idx_base)
+    pairs = list(zip(m["read_batch"]([f"{fx}/reads_nfail_1.fq"]),
+                     m["read_batch"]([f"{fx}/reads_nfail_2.fq"])))
+    with open(f"{fx}/golden_nfail_paired.tsv", "rb") as f:
+        want = f.read().split(b"\n", 1)[1]
+    for native in (True, False):
+        cfg = m["Cfg"](classifier=m["ClsCfg"](khits=20), use_native=native)
+        pipe = make(idx, cfg, device=device)
+        if (pipe.native is not None) != native:
+            return f"{what}: use_native={native} made no such assigner"
+        got = "".join(r + "\n" for r in pipe.classify_batch_paired(pairs))
+        if got.encode() != want:
+            return f"{what} (use_native={native}): " \
+                   + _first_diff(got.encode(), want)
+    return _route_fault(route, made)
+
+
 def load_port():
     """Import what the run needs: the port, torch and numpy only."""
     sys.path.insert(0, REPO)
     import numpy as np
     import torch
     from centrifuge_tpu_torch import _cuda
-    from centrifuge_tpu_torch.classify import engine
+    from centrifuge_tpu_torch.classify import engine, gpu_pipeline
     from centrifuge_tpu_torch.classify.algo import ClassifierConfig
     from centrifuge_tpu_torch.classify.gpu_pipeline import \
         GPUClassificationPipeline
@@ -313,8 +573,9 @@ def load_port():
         ClassificationPipeline, PipelineConfig)
     from centrifuge_tpu_torch.cli import classify as cli
     from centrifuge_tpu_torch import __main__ as tools
-    from centrifuge_tpu_torch.evaluation import (bigdb, prof, tile_sweep,
-                                                 wide_table, widebench)
+    from centrifuge_tpu_torch.evaluation import (bigdb, prof, simulate,
+                                                 tile_sweep, wide_table,
+                                                 widebench)
     from centrifuge_tpu_torch.index.cf_io import load_cf_index
     from centrifuge_tpu_torch.io.fastx import read_batch, read_fastx
     from centrifuge_tpu_torch.ops import fm_torch, rank
@@ -324,11 +585,13 @@ def load_port():
     from centrifuge_tpu_torch.report.writers import write_report
     from centrifuge_tpu_torch.utils.fallback import fallbacks
     return dict(np=np, torch=torch, cuda=_cuda, engine=engine,
+                gpu_pipeline=gpu_pipeline,
                 sharded=sharded,
                 Pipe=GPUClassificationPipeline,
                 OraclePipe=ClassificationPipeline, Cfg=PipelineConfig,
                 cli=cli, bigdb=bigdb, tile_sweep=tile_sweep, tools=tools,
-                prof=prof, wide_table=wide_table, widebench=widebench,
+                prof=prof, simulate=simulate, wide_table=wide_table,
+                widebench=widebench,
                 shardbench=shardbench,
                 shardscale=shardscale, scaling_bench=scaling_bench,
                 load_cf_index=load_cf_index,
@@ -560,22 +823,47 @@ class Smoke:
         return dict(**self.bound(nbytes + io, ops, popc),
                     live_ranges=int(live.sum()), scanned_ends=ends.numel())
 
-    def stream(self, idx, batches, host_resolve: bool, dfm=None):
+    def stream(self, idx, batches, host_resolve: bool, dfm=None, cfg=None,
+               paired=False):
         """A fresh pipeline (on dfm, else building the index) streaming
-        the batches, launch counts from 0 before it is built: (pipe,
-        rows, build seconds, stream seconds, launches)."""
+        the batches (of pairs, with paired), launch counts from 0 before
+        it is built: (pipe, rows, build seconds, stream seconds,
+        launches). cfg: the PipelineConfig (default: the default one);
+        its host_resolve is set."""
         m, torch = self.m, self.torch
+        cfg = dataclasses.replace(cfg or m["Cfg"](),
+                                  host_resolve=host_resolve)
         m["cuda"].reset_launches()
         t0 = time.perf_counter()
-        pipe = m["Pipe"](idx, m["Cfg"](host_resolve=host_resolve),
-                         device=self.dev, dfm=dfm)
+        pipe = m["Pipe"](idx, cfg, device=self.dev, dfm=dfm)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         rows = []
-        for chunk in pipe.classify_stream_unpaired(batches):
+        run = pipe.classify_stream_paired if paired \
+            else pipe.classify_stream_unpaired
+        for chunk in run(batches):
             rows += chunk
         t2 = time.perf_counter()
         return pipe, rows, t1 - t0, t2 - t1, dict(m["cuda"].LAUNCHES)
+
+    def oracle_check(self, what: str, idx, items, rows, cfg=None,
+                     paired=False) -> int:
+        """Fail unless a stream's rows begin with the host oracle's
+        (ClassificationPipeline + FMOracle, under cfg) for the first
+        ORACLE_READS reads or pairs of items; returns the rows compared."""
+        m = self.m
+        orc = m["OraclePipe"](idx, m["FMOracle"](idx), cfg or m["Cfg"]())
+        want = []
+        for it in items[:ORACLE_READS]:
+            want += orc.classify_paired(*it) if paired \
+                else orc.classify_unpaired(it)
+        if rows[: len(want)] != want:
+            bad = next((i for i, (a, b) in enumerate(zip(rows, want))
+                        if a != b), min(len(rows), len(want)))
+            fail(f"{what}: oracle mismatch at row {bad}: "
+                 f"{rows[bad] if bad < len(rows) else None!r} vs "
+                 f"{want[bad]!r}")
+        return len(want)
 
     @staticmethod
     def same_rows(what: str, got, want) -> None:
@@ -583,7 +871,8 @@ class Smoke:
             bad = next((i for i, (a, b) in enumerate(zip(got, want))
                         if a != b), min(len(got), len(want)))
             fail(f"{what} stream differs from the host-resolve stream at "
-                 f"row {bad}")
+                 f"row {bad}: {got[bad] if bad < len(got) else None!r} vs "
+                 f"{want[bad] if bad < len(want) else None!r}")
 
     def check_path(self, path: str, launches: dict, kernels,
                    absent=()) -> None:
@@ -1215,17 +1504,9 @@ class Smoke:
 
         # ---- the first 300 reads against the host oracle ----
         t0 = time.perf_counter()
-        orc = m["OraclePipe"](idx, m["FMOracle"](idx), m["Cfg"]())
-        want = []
-        for r in recs[:ORACLE_READS]:
-            want += orc.classify_unpaired(r)
-        if rows[: len(want)] != want:
-            bad = next(i for i, (a, b) in enumerate(zip(rows, want))
-                       if a != b)
-            fail(f"oracle mismatch at row {bad}: {rows[bad]!r} vs "
-                 f"{want[bad]!r}")
+        nrows = self.oracle_check("full", idx, recs, rows)
         emit(dict(phase="full_oracle", reads=ORACLE_READS,
-                  rows=len(want), result="byte-equal",
+                  rows=nrows, result="byte-equal",
                   seconds=round(time.perf_counter() - t0, 3)))
 
         # ---- the device-resolve path (host_resolve=False) on the same
@@ -1586,12 +1867,110 @@ class Smoke:
                       "host_clock_ms"],
                   resolve_ms=ms, resolve_host_clock_ms=host_ms))
 
+    def parity(self) -> None:
+        """The reference's parity surface on the card: every case of
+        PARITY_CASES through the classify CLI on every route of
+        PARITY_ROUTES (parity_pipe standing in for the pipeline the CLI
+        builds), launch counts from 0 before each route, then the 256 Mbp
+        configurations (parity_full)."""
+        m, cuda = self.m, self.m["cuda"]
+        t_phase = time.perf_counter()
+        shared = {}
+        for route, (layout, host_resolve) in PARITY_ROUTES.items():
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            faults = []
+            for case in PARITY_CASES:
+                with tempfile.TemporaryDirectory() as td:
+                    fault = run_parity_case(m, case, route, shared, self.dev,
+                                            td)
+                if fault:
+                    faults.append(fault)
+            launches = dict(cuda.LAUNCHES)
+            emit(dict(phase="parity", route=route, layout=layout,
+                      resolve="host" if host_resolve else "device",
+                      cases=len(PARITY_CASES),
+                      equal=len(PARITY_CASES) - len(faults),
+                      seconds=round(time.perf_counter() - t0, 3),
+                      launches=launches))
+            if faults:
+                fail(f"{len(faults)} parity cases differ; first: "
+                     f"{faults[0]}")
+            if layout == "mesh":
+                path, absent = (MESH_HOST_PATH, ("sharded_resolve",)) \
+                    if host_resolve else (MESH_DEVICE_PATH, ())
+            else:
+                path, absent = (("search",), ("presolve", "resolve")) \
+                    if host_resolve else (DEVICE_RESOLVE_PATH, ())
+            self.check_path(f"parity route {route}", launches, path, absent)
+        self.parity_full()
+        emit(dict(phase="parity", route="all", card=self.smi,
+                  seconds=round(time.perf_counter() - t_phase, 3)))
+
+    def parity_full(self) -> None:
+        """The 256 Mbp database of `full` at each PARITY_FULL setting, its
+        99,968 reads streamed on the host and then the device resolve,
+        and PARITY_PAIRS pairs simulated from its genomes at k 1 the same
+        way: the two streams byte-equal, and their first ORACLE_READS
+        reads or pairs equal to the host oracle's under the same
+        settings."""
+        m, st = self.m, self.full_state
+        idx, fm, batches = st["idx"], st["fm"], st["batches"]
+        recs = [r for b in batches for r in b]
+        prefix, npairs, seed = PARITY_PAIRS
+        pfx = os.path.join(CACHE, prefix)
+        if not os.path.exists(pfx + "_2.fq"):
+            sim = m["simulate"]
+            sim.simulate(os.path.join(CACHE, "bigdb.fa"),
+                         os.path.join(CACHE, "conv.dmp"), pfx,
+                         sim.SimConfig(num_fragments=npairs, read_length=100,
+                                       paired=True, error_rate=0.002,
+                                       seed=seed))
+        pairs = list(zip(m["read_fastx"](pfx + "_1.fq"),
+                         m["read_fastx"](pfx + "_2.fq")))
+        if len(pairs) != npairs:
+            fail(f"simulated {len(pairs)} pairs, not {npairs}")
+        runs = [(name, kw, batches, recs, False) for name, kw in PARITY_FULL]
+        runs.append(("paired_k1", dict(khits=1),
+                     [pairs[i: i + PARITY_PAIRS_BATCH]
+                      for i in range(0, npairs, PARITY_PAIRS_BATCH)],
+                     pairs, True))
+        for name, kw, items, flat, paired in runs:
+            cfg = m["Cfg"](classifier=m["ClsCfg"](**kw))
+            rates, launches, host_rows = [], [], None
+            for hr in (True, False):
+                _, rows, _, secs, ln = self.stream(idx, items, hr, fm, cfg,
+                                                   paired)
+                if hr:
+                    self.check_path(f"parity {name} host-resolve", ln,
+                                    ("search",),
+                                    absent=("presolve", "resolve"))
+                    host_rows = rows
+                else:
+                    self.check_path(f"parity {name} device-resolve", ln,
+                                    DEVICE_RESOLVE_PATH)
+                    self.same_rows(f"parity {name} device-resolve", rows,
+                                   host_rows)
+                rates.append(len(flat) / secs)
+                launches.append(ln)
+            t0 = time.perf_counter()
+            nrows = self.oracle_check(f"parity {name}", idx, flat, host_rows,
+                                      cfg, paired)
+            emit(dict(phase="parity_full", config=name,
+                      classifier=kw, bases=int(idx.bwt_len),
+                      **{"pairs" if paired else "reads": len(flat)},
+                      rows=len(host_rows),
+                      device_resolve="byte-equal to the host-resolve stream",
+                      oracle=f"first {ORACLE_READS} byte-equal ({nrows} rows)",
+                      oracle_s=round(time.perf_counter() - t0, 3),
+                      **{("pairs" if paired else "reads") + "_per_s":
+                         [round(r, 1) for r in rates]},
+                      resolve=["host", "device"], launches=launches))
+
     def tool(self, argv, stdin=None) -> str:
         """stdout of `python -m centrifuge_tpu_torch argv`, run in this
         process through the port's __main__ table; stdin: a fixture file
         fed on standard input. Fails on a nonzero exit."""
-        import contextlib
-        import io
         out = io.StringIO()
         old_stdin = sys.stdin
         try:
@@ -1831,7 +2210,7 @@ def main(argv) -> int:
     s = Smoke(m)
     for phase in (s.env, s.kernels, s.kernels_sharded, s.wide_scale,
                   s.synth, s.synth_sharded, s.multihost, s.full,
-                  s.full_sharded, s.tools, s.prof, s.harnesses):
+                  s.full_sharded, s.parity, s.tools, s.prof, s.harnesses):
         phase()
     emit({"kernels": list(s.rows.values())})
     print(s.smi, flush=True)

@@ -747,3 +747,33 @@ def test_prof_times_the_card(cuda, port_index, host_resolve):
     assert 0 <= share["value"] <= 1
     assert 0 <= share["events"]["value"] <= 1
     assert share["events"]["dispatches"] >= 2
+
+
+# cases of chip_smoke.PARITY_CASES that change the lanes K1 and K5 see
+# (k 1 and 20, min-hitlen 16, paired k 1, N-laden reads, pairs whose mate
+# 1 fails the N filter): a quick check of the parity phase
+GPU_PARITY = ("k1", "k20", "minhit16", "paired_k1", "nceil", "nfail_paired")
+
+
+@pytest.fixture(scope="module")
+def parity_shared():
+    return {}
+
+
+@pytest.mark.parametrize("route", ["a", "b"])
+@pytest.mark.parametrize("name", GPU_PARITY)
+def test_parity_cases_on_the_card(cuda, parity_shared, name, route,
+                                  tmp_path):
+    """chip_smoke.run_parity_case on the card: the classify CLI's outputs
+    byte-equal to the reference goldens on route a (host walk: K1) and
+    route b (device resolve: K1, K5, K3)."""
+    import chip_smoke
+    from centrifuge_tpu_torch import _cuda
+    case = next(c for c in chip_smoke.PARITY_CASES if c.name == name)
+    _cuda.reset_launches()
+    fault = chip_smoke.run_parity_case(chip_smoke.load_port(), case, route,
+                                       parity_shared, cuda, str(tmp_path))
+    assert fault is None, fault
+    assert _cuda.LAUNCHES["search"] > 0
+    for k in ("presolve", "resolve"):
+        assert (_cuda.LAUNCHES[k] > 0) == (route == "b"), k

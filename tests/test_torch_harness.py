@@ -22,7 +22,9 @@ from test_torch_twin import one_torch_thread  # noqa: F401
 SYNTH = fixture_path("synth")
 # the unpaired cases classify the first N_READS synth reads, held to the
 # goldens' first N_READS rows
-N_READS = 1000
+N_READS = 500
+# the shard census's reads (shardbench.leg_cpu)
+CENSUS_READS = 32
 
 
 def _golden(name, n_rows=None):
@@ -149,14 +151,14 @@ def test_shardbench_cpu_census():
     from centrifuge_tpu_torch.parallel.sharded import (
         MeshIndex, ShardedFMArrays, ShardedSearchEngine, make_mesh,
         sharded_search_plain)
-    line = shardbench.leg_cpu(n_reads=64)
+    line = shardbench.leg_cpu(n_reads=CENSUS_READS)
     assert line["n_fm"] == 8 and line["k6_launches_per_batch"] == 0
     # the same search, recorded, and counted shard by shard
     idx = shardbench._index()
     index = MeshIndex(ShardedFMArrays.build(idx, 8),
                       make_mesh(1, 8, ["cpu"] * 8))
     eng = ShardedSearchEngine(index)
-    seqs = [s for r in shardbench._mk_reads(64)
+    seqs = [s for r in shardbench._mk_reads(CENSUS_READS)
             for s in (r.seq, r.revcomp())]
     rseqp, lengths = eng.pack_transport(seqs, 160, len(seqs))
     stats = {}
@@ -186,7 +188,7 @@ def test_shardbench_real_rows_identical():
     """shardbench --real on the CPU at a small size: the plain engine and
     the (1, 1) mesh give the same rows; no kernel launch."""
     from centrifuge_tpu_torch.parallel import shardbench
-    line = shardbench.leg_real("cpu", n_reads=256, batch=128)
+    line = shardbench.leg_real("cpu", n_reads=128, batch=128)
     assert line["rows_identical"] is True
     assert len(line["plain_runs"]) == len(line["sharded_runs"]) == 3
     assert not any(line["launches"].values())
@@ -208,7 +210,7 @@ def test_scaling_bench_one_process(tmp_path, capsys):
             "--procid", "0", "--local-devices", "4", "--n-fm", "2", "-x",
             os.path.join(SYNTH, "synth"), "-U",
             os.path.join(SYNTH, "reads.fq"), "--limit", str(N_READS),
-            "--batch", "500", "--out", str(out), "--device", "cpu"])
+            "--batch", str(N_READS), "--out", str(out), "--device", "cpu"])
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -1,0 +1,19 @@
+"""Route c of the parity surface on the CPU: the cases of
+chip_smoke.PARITY_CASES that change what the kernels see, through the
+port's classify CLI with the wide layout forced on the 1 Mbp synth index
+(int64 rows, 64-bit occ), on both resolve paths, byte-equal to the
+reference goldens."""
+
+import pytest
+
+import chip_smoke
+from test_torch_parity import check_route, port, shared  # noqa: F401
+from test_torch_twin import one_torch_thread  # noqa: F401
+
+CASES = [c for c in chip_smoke.PARITY_CASES if c.device_work]
+
+
+@pytest.mark.parametrize("route", ["c-host", "c-device"])
+@pytest.mark.parametrize("case", CASES, ids=[c.name for c in CASES])
+def test_parity_wide(port, shared, case, route, tmp_path):  # noqa: F811
+    check_route(port, shared, case, route, tmp_path)

@@ -52,6 +52,17 @@ JSON line; any failure exits non-zero:
             cuda:0 ((2, 2) narrow unpaired + report, (1, 4) wide paired),
             host and device resolve: byte-equal to the goldens, K6
             launched and no single-device kernel
+  graft_entry  the port's entry points (centrifuge_tpu_torch/graft_entry.py,
+            the counterpart of __graft_entry__.py): entry()'s K1 call on
+            the 128 lanes of the first 64 synth reads, launched once and
+            equal to search_plain on the same arguments on the CPU, timed
+            by CUDA events (median of 20 after a warm-up);
+            dryrun_multichip over every card, then over meshes of 2, 4
+            and 8 entries of cuda:0 ((1, 2), (2, 2), (4, 2)), the 256
+            reads' rows equal to the golden rows, K6's search launched
+            and no single-device kernel; python -m
+            centrifuge_tpu_torch.graft_entry in a process of its own,
+            exit 0 with both of its ok lines
   multihost two processes on cuda:0 joined by gloo
             (parallel/multihost.py, a (1, 2) wide mesh each) classify
             the two halves of the synth reads: merged rows equal the
@@ -262,6 +273,8 @@ MESH_HOST_PATH = ("sharded_search",)
 MESH_DEVICE_PATH = ("sharded_search", "sharded_resolve")
 SINGLE_DEVICE = ("rank", "ftab12", "search", "presolve", "resolve")
 MESH_FM = 4                    # full_sharded's (1, 4) mesh
+GRAFT_MESH_SIZES = (2, 4, 8)   # graft_entry's meshes of cuda:0
+GRAFT_REPS = 20                # graft_entry's timed K1 calls
 # wide_scale: its table's seed, K0's and K3's query rows, the reads
 # walked through the table and their length
 WIDE_SEED = 31
@@ -573,6 +586,7 @@ def load_port():
         ClassificationPipeline, PipelineConfig)
     from centrifuge_tpu_torch.cli import classify as cli
     from centrifuge_tpu_torch import __main__ as tools
+    from centrifuge_tpu_torch import graft_entry
     from centrifuge_tpu_torch.evaluation import (bigdb, prof, simulate,
                                                  tile_sweep, wide_table,
                                                  widebench)
@@ -590,6 +604,7 @@ def load_port():
                 Pipe=GPUClassificationPipeline,
                 OraclePipe=ClassificationPipeline, Cfg=PipelineConfig,
                 cli=cli, bigdb=bigdb, tile_sweep=tile_sweep, tools=tools,
+                graft_entry=graft_entry,
                 prof=prof, simulate=simulate, wide_table=wide_table,
                 widebench=widebench,
                 shardbench=shardbench,
@@ -1432,6 +1447,137 @@ class Smoke:
                   unpaired="byte-equal", report="byte-equal",
                   paired="byte-equal", **out))
 
+    def entry_kernel_ms(self, fm, args, outs, reps: int) -> float:
+        """ms per launch of K1 alone on graft_entry.entry()'s lanes, by
+        CUDA events over a CUDA graph of `reps` launches through its C
+        entry, each on its own zeroed work counter (as the wrapper calls
+        it, without the wrapper's checks and allocation); the outputs
+        must equal outs."""
+        torch, cuda, ge = self.torch, self.m["cuda"], self.m["graft_entry"]
+        reads, lengths, start = args[4:]
+        lib = cuda.lib("search")
+        fn = lib.fm_search_wide if fm.wide else lib.fm_search_narrow
+        res = [torch.empty_like(o) for o in outs]
+        counters = torch.zeros((reps, 1), dtype=torch.int32, device=self.dev)
+
+        def launches():
+            counters.zero_()
+            for k in range(reps):
+                cuda.check(fn(
+                    fm.blocks.data_ptr(), fm.fchr.data_ptr(), int(fm.zoff),
+                    fm.ftab_rows.data_ptr(), None, reads.data_ptr(),
+                    reads.shape[1], lengths.data_ptr(), start.data_ptr(),
+                    *[r.data_ptr() for r in res], reads.shape[0],
+                    ge.MAX_HITS, ge.MIN_HITLEN, ge.INCREMENT, 0, 0,
+                    counters[k].data_ptr(), cuda.stream_ptr(self.dev)),
+                    "search kernel")
+
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(side):
+            launches()
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            launches()
+        ms = self.time_cuda(graph.replay, 3) / reps
+        self.equal("entry() (K1 alone)", res, outs)
+        return ms
+
+    def graft_entry(self) -> None:
+        """The port's entry points: entry()'s K1 call once on the card
+        (one launch) against the same call on its arguments moved to the
+        CPU (search_plain), then timed; dryrun_multichip with the default
+        devices and over meshes of GRAFT_MESH_SIZES entries of cuda:0,
+        launch counts from 0 before each; the module as python -m runs
+        it."""
+        m, torch, np = self.m, self.torch, self.np
+        cuda, ge = m["cuda"], m["graft_entry"]
+        t_phase = time.perf_counter()
+        fn, args = ge.entry()
+        cuda.reset_launches()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        search = cuda.LAUNCHES["search"]
+        if search != 1:
+            fail(f"entry(): {search} K1 launches, not 1")
+        cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        t0 = time.perf_counter()
+        want = fn(*cpu_args)          # CPU tensors: search_plain
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if cuda.LAUNCHES["search"] != 1:
+            fail("entry()'s plain call launched K1")
+        err = self.equal("entry() (K1)", [g.cpu() for g in got], want)
+        # the same call on the card's tensors with the lookups recorded,
+        # for the bound; then the kernel alone
+        fm = m["fm_torch"].DeviceFMIndex.build(m["load_cf_index"](SYN),
+                                               device=self.dev)
+        stats = {}
+        plain = m["engine"].search_plain(fm, *args[4:], ge.MAX_HITS,
+                                         ge.MIN_HITLEN, ge.INCREMENT, False,
+                                         False, stats=stats)
+        self.equal("entry() (K1, plain on the card)", got, plain)
+        nbytes, int_ops, popc = self.traffic(fm, stats)
+        io = sum(t.numel() * t.element_size()
+                 for t in list(args[4:]) + got + [fm.fchr])
+        bound = self.bound(nbytes + io, int_ops, popc)
+        kernel_ms = self.entry_kernel_ms(fm, args, got, GRAFT_REPS)
+        fn(*args)
+        ms = []
+        for _ in range(GRAFT_REPS):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn(*args)
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+        runs = []
+        for n, devices in [(self.count, None)] + [
+                (k, [str(self.dev)] * k) for k in GRAFT_MESH_SIZES]:
+            what = f"dryrun_multichip({n}, devices=" + (
+                "None)" if devices is None else f"[{self.dev}] * {n})")
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                ge.dryrun_multichip(n, devices=devices)
+            except AssertionError as e:
+                fail(f"{what}: {e}")
+            secs = time.perf_counter() - t0
+            launches = dict(cuda.LAUNCHES)
+            self.check_path(what, launches, MESH_HOST_PATH,
+                            absent=("sharded_resolve",))
+            n_fm = 2 if n % 2 == 0 else 1
+            runs.append(dict(call=what, mesh=[n // n_fm, n_fm],
+                             rows="equal to the golden rows",
+                             sharded_search=launches["sharded_search"],
+                             search=launches["search"],
+                             seconds=round(secs, 3)))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "centrifuge_tpu_torch.graft_entry"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        mod_s = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        if proc.returncode or "entry ok" not in lines \
+                or "dryrun ok" not in lines:
+            fail(f"python -m centrifuge_tpu_torch.graft_entry: exit "
+                 f"{proc.returncode}, {lines}: {proc.stderr[-2000:]}")
+        emit(dict(phase="graft_entry", lanes=int(args[4].shape[0]),
+                  entry=dict(outputs="equal to search_plain on the CPU",
+                             max_abs_err=err, search_launches=search,
+                             k1_ms_median=float(np.median(ms)),
+                             k1_ms_min=min(ms), reps=GRAFT_REPS,
+                             kernel_alone_ms=kernel_ms, plain_ms=plain_ms,
+                             lockstep_steps=len(stats.get("bwt_rows", [])),
+                             **bound),
+                  dryruns=runs,
+                  module=dict(rc=proc.returncode, lines=lines,
+                              seconds=round(mod_s, 3)),
+                  card=self.smi,
+                  seconds=round(time.perf_counter() - t_phase, 3)))
+
     def multihost(self) -> None:
         """Two processes on cuda:0, joined by gloo for the host scalars,
         each classifying its half of the synth reads over a (1, 2) wide
@@ -2209,7 +2355,8 @@ def main(argv) -> int:
         return 2
     s = Smoke(m)
     for phase in (s.env, s.kernels, s.kernels_sharded, s.wide_scale,
-                  s.synth, s.synth_sharded, s.multihost, s.full,
+                  s.synth, s.synth_sharded, s.graft_entry, s.multihost,
+                  s.full,
                   s.full_sharded, s.parity, s.tools, s.prof, s.harnesses):
         phase()
     emit({"kernels": list(s.rows.values())})

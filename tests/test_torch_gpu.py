@@ -777,3 +777,29 @@ def test_parity_cases_on_the_card(cuda, parity_shared, name, route,
     assert _cuda.LAUNCHES["search"] > 0
     for k in ("presolve", "resolve"):
         assert (_cuda.LAUNCHES[k] > 0) == (route == "b"), k
+
+
+def test_graft_entry_on_the_card(cuda):
+    """graft_entry.entry(): one K1 launch, equal to the entry's plain
+    version on the CPU."""
+    from centrifuge_tpu_torch import _cuda, graft_entry
+    fn, args = graft_entry.entry()
+    assert all(a.is_cuda for a in args if isinstance(a, torch.Tensor))
+    _cuda.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["search"] == 1
+    cfn, cargs = graft_entry.entry(device="cpu")
+    want = cfn(*cargs)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_graft_dryrun_on_a_mesh_of_the_card(cuda):
+    """graft_entry.dryrun_multichip on a (2, 2) mesh of cuda:0: K6's
+    search and no single-device search."""
+    from centrifuge_tpu_torch import _cuda, graft_entry
+    _cuda.reset_launches()
+    graft_entry.dryrun_multichip(4, devices=["cuda:0"] * 4)
+    assert _cuda.LAUNCHES["sharded_search"] > 0
+    assert _cuda.LAUNCHES["search"] == 0

@@ -63,6 +63,14 @@ JSON line; any failure exits non-zero:
             and no single-device kernel; python -m
             centrifuge_tpu_torch.graft_entry in a process of its own,
             exit 0 with both of its ok lines
+  bench     python -m centrifuge_tpu_torch.bench (the counterpart of
+            bench.py) with --trials 1 in a process of its own: the parity
+            gate on the 3,000 synth reads, unpaired and paired reads/s
+            (one trial of 12 batches of 65,536 lanes each; the 5-trial
+            bench at its defaults is a run of its own), K1's launch alone
+            by CUDA events; exit 0 with parity_ok and native_ok true, on
+            "cuda", K1 launched, every rate above 0; its line is emitted
+            with the phase's seconds
   multihost two processes on cuda:0 joined by gloo
             (parallel/multihost.py, a (1, 2) wide mesh each) classify
             the two halves of the synth reads: merged rows equal the
@@ -275,6 +283,7 @@ SINGLE_DEVICE = ("rank", "ftab12", "search", "presolve", "resolve")
 MESH_FM = 4                    # full_sharded's (1, 4) mesh
 GRAFT_MESH_SIZES = (2, 4, 8)   # graft_entry's meshes of cuda:0
 GRAFT_REPS = 20                # graft_entry's timed K1 calls
+BENCH_TIMEOUT = 300            # s for the bench with one trial
 # wide_scale: its table's seed, K0's and K3's query rows, the reads
 # walked through the table and their length
 WIDE_SEED = 31
@@ -1578,6 +1587,36 @@ class Smoke:
                   card=self.smi,
                   seconds=round(time.perf_counter() - t_phase, 3)))
 
+    def bench(self) -> None:
+        """python -m centrifuge_tpu_torch.bench with one trial of each
+        stream, its last line held to the bench's gate."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "centrifuge_tpu_torch.bench",
+             "--trials", "1"], cwd=REPO,
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        secs = time.perf_counter() - t0
+        out = proc.stdout.splitlines()
+        try:
+            line = json.loads(out[-1])
+        except (IndexError, ValueError):
+            fail(f"bench: exit {proc.returncode}, no result line: "
+                 f"{out[-5:]} {proc.stderr[-2000:]}")
+        checks = {"exit code": proc.returncode == 0,
+                  "parity_ok": line.get("parity_ok") is True,
+                  "native_ok": line.get("native_ok") is True,
+                  "device": line.get("device") == "cuda",
+                  "K1 launches": line.get("launches", {}).get("search", 0) > 0}
+        for k in ("value", "paired_pairs_per_sec",
+                  "device_search_ms_per_batch"):
+            checks[k] = (line.get(k) or 0) > 0
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"bench: {', '.join(bad)} wrong: {json.dumps(line)} "
+                 f"{proc.stderr[-2000:]}")
+        emit(dict(phase="bench", seconds=round(secs, 3), line=line,
+                  log=out[:-1]))
+
     def multihost(self) -> None:
         """Two processes on cuda:0, joined by gloo for the host scalars,
         each classifying its half of the synth reads over a (1, 2) wide
@@ -2355,7 +2394,8 @@ def main(argv) -> int:
         return 2
     s = Smoke(m)
     for phase in (s.env, s.kernels, s.kernels_sharded, s.wide_scale,
-                  s.synth, s.synth_sharded, s.graft_entry, s.multihost,
+                  s.synth, s.synth_sharded, s.graft_entry, s.bench,
+                  s.multihost,
                   s.full,
                   s.full_sharded, s.parity, s.tools, s.prof, s.harnesses):
         phase()

@@ -803,3 +803,23 @@ def test_graft_dryrun_on_a_mesh_of_the_card(cuda):
     graft_entry.dryrun_multichip(4, devices=["cuda:0"] * 4)
     assert _cuda.LAUNCHES["sharded_search"] > 0
     assert _cuda.LAUNCHES["search"] == 0
+
+
+def test_bench_on_the_card(cuda, tmp_path, monkeypatch, capsys):
+    """centrifuge_tpu_torch.bench at a reduced size (2,048 reads a batch,
+    one trial), its simulations in tmp_path: parity held, the native host
+    paths live, K1 launched and timed alone, and no other kernel."""
+    import json
+    import tempfile
+    from centrifuge_tpu_torch import bench
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    rc = bench.main(["--batch", "2048", "--trials", "1"])
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rc == 0
+    assert line["parity_ok"] and line["native_ok"]
+    assert line["device"] == "cuda" and line["card"]
+    assert line["device_batch_lanes"] == 4096
+    assert line["device_search_ms_per_batch"] > 0
+    assert line["value"] > 0 and line["paired_pairs_per_sec"] > 0
+    assert line["launches"]["search"] > 0
+    assert not any(v for k, v in line["launches"].items() if k != "search")

@@ -1,5 +1,11 @@
+import collections
+import contextlib
+import io
+import logging
 import os
 import sys
+import traceback
+from unittest import mock
 
 # Multi-chip sharding tests run on a virtual 8-device CPU mesh; the bench
 # path (bench.py) runs on the real chip outside pytest. A pytest plugin
@@ -40,6 +46,62 @@ def synth_index():
 
 def fixture_path(*parts: str) -> str:
     return os.path.join(FIXTURES, *parts)
+
+
+def wrap_60(path: str) -> str:
+    """A FASTA file re-wrapped at 60 chars a line: the reference inspect's
+    default output for an index of it."""
+    lines, seq = [], []
+
+    def flush():
+        s = "".join(seq)
+        lines.extend(s[i:i + 60] for i in range(0, len(s), 60))
+
+    with open(path) as f:
+        for line in f:
+            if line.startswith(">"):
+                flush()
+                lines.append(line.rstrip("\n"))
+                seq = []
+            else:
+                seq.append(line.strip())
+    flush()
+    return "\n".join(lines) + "\n"
+
+
+ToolResult = collections.namedtuple("ToolResult", "returncode stdout stderr")
+
+
+def run_tool(call, argv, input_text=None) -> ToolResult:
+    """call() run as `centrifuge argv...` runs in a process: stdin served
+    from `input_text`, output captured, CPython's exit code (a string
+    code printed to stderr, or an uncaught exception's traceback, as 1).
+    sys.stdin, sys.argv, cwd, os.environ and root log handlers restored."""
+    out, err = io.StringIO(), io.StringIO()
+    # text over bytes: .read(), iteration and .buffer all serve it
+    stdin = io.TextIOWrapper(io.BytesIO((input_text or "").encode()), "utf-8")
+    with (mock.patch.multiple(sys, stdin=stdin, argv=["centrifuge", *argv]),
+          mock.patch.dict(os.environ), contextlib.chdir(os.getcwd()),
+          mock.patch.object(logging.root, "handlers",
+                            [*logging.root.handlers]),
+          contextlib.redirect_stdout(out), contextlib.redirect_stderr(err)):
+        try:
+            code = call()
+        except SystemExit as e:
+            code = e.code
+        except Exception:
+            traceback.print_exc()
+            code = 1
+        if not isinstance(code, (int, type(None))):
+            print(code, file=sys.stderr)
+            code = 1
+    return ToolResult(int(code or 0), out.getvalue(), err.getvalue())
+
+
+def jax_run(argv, input_text=None) -> ToolResult:
+    """`python -m centrifuge_tpu argv...`, run in this process."""
+    from centrifuge_tpu.__main__ import main
+    return run_tool(main, argv, input_text)
 
 
 def pytest_configure(config):

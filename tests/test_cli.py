@@ -1,30 +1,11 @@
 """CLI end-to-end parity: drive the command surfaces against goldens."""
 
 import os
-import subprocess
-import sys
 
 import pytest
 
-from conftest import FIXTURES, fixture_path
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
-
-
-def run_cli(args, input_text=None):
-    # jax.config platform override for subprocesses: tests always force cpu
-    cmd = [sys.executable, "-c",
-           "import jax; jax.config.update('jax_platforms','cpu');"
-           "import sys; sys.argv[0]='centrifuge';"
-           "from centrifuge_tpu.cli import classify, build_cli, inspect_cli,"
-           " kreport_cli, promote_cli;"
-           "tool=sys.argv[1];"
-           "mod={'classify':classify,'build':build_cli,'inspect':inspect_cli,"
-           "'kreport':kreport_cli,'promote':promote_cli}[tool];"
-           "sys.exit(mod.run(sys.argv[2:]))"] + args
-    return subprocess.run(cmd, capture_output=True, text=True, env=ENV,
-                          input=input_text, cwd=REPO, timeout=600)
+# each tool runs in this process, so a jit shape compiles once a worker
+from conftest import fixture_path, jax_run as run_cli, wrap_60
 
 
 @pytest.mark.parametrize("engine", ["tpu"])
@@ -254,14 +235,9 @@ def test_sample_sheet(tmp_path):
 def test_eval_cli(tmp_path):
     fx = fixture_path("synth")
     prefix = str(tmp_path / "sim")
-    cmd = [sys.executable, "-c",
-           "import jax; jax.config.update('jax_platforms','cpu');"
-           "import sys; from centrifuge_tpu.cli import eval_cli;"
-           "sys.exit(eval_cli.run_simulate(sys.argv[1:]))",
-           "-x", os.path.join(fx, "db.fa"),
-           "--conversion-table", os.path.join(fx, "conv.dmp"),
-           "-o", prefix, "--num", "100", "--seed", "3"]
-    r = subprocess.run(cmd, capture_output=True, text=True, env=ENV, cwd=REPO)
+    r = run_cli(["simulate", "-x", os.path.join(fx, "db.fa"),
+                 "--conversion-table", os.path.join(fx, "conv.dmp"),
+                 "-o", prefix, "--num", "100", "--seed", "3"])
     assert r.returncode == 0, r.stderr
     assert os.path.exists(prefix + ".fq")
 
@@ -270,12 +246,7 @@ def test_eval_cli(tmp_path):
     r = run_cli(["classify", "-x", os.path.join(fx, "synth"),
                  "-U", prefix + ".fq", "-S", str(out), "--report-file", ""])
     assert r.returncode == 0, r.stderr
-    cmd = [sys.executable, "-c",
-           "import jax; jax.config.update('jax_platforms','cpu');"
-           "import sys; from centrifuge_tpu.cli import eval_cli;"
-           "sys.exit(eval_cli.run_evaluate(sys.argv[1:]))",
-           "-x", os.path.join(fx, "synth"), str(out)]
-    r = subprocess.run(cmd, capture_output=True, text=True, env=ENV, cwd=REPO)
+    r = run_cli(["evaluate", "-x", os.path.join(fx, "synth"), str(out)])
     assert r.returncode == 0, r.stderr
     assert "genus\t" in r.stdout
 
@@ -355,20 +326,7 @@ def test_inspect_fasta_byte_parity():
     """Default FASTA reconstruction byte-matches the reference binary
     (equivalently: db.fa re-wrapped at 60 chars/line)."""
     fx = fixture_path("synth")
-    lines = []
-    seq = []
-    for line in open(os.path.join(fx, "db.fa")):
-        if line.startswith(">"):
-            if seq:
-                s = "".join(seq)
-                lines += [s[i:i+60] for i in range(0, len(s), 60)]
-            lines.append(line.rstrip("\n"))
-            seq = []
-        else:
-            seq.append(line.strip())
-    s = "".join(seq)
-    lines += [s[i:i+60] for i in range(0, len(s), 60)]
-    want = "\n".join(lines) + "\n"
+    want = wrap_60(os.path.join(fx, "db.fa"))
     r = run_cli(["inspect", os.path.join(fx, "synth")])
     assert r.stdout == want
 

@@ -1,10 +1,9 @@
 """The port's tool surface (`python -m centrifuge_tpu_torch <tool>`) against
 the JAX package's tools on the same inputs and against the reference
 goldens of tests/test_cli.py. Every tool runs in this process through
-its `run(argv)` (the port's through its __main__ table); no subprocess
-imports jax. Text outputs: byte equality."""
+its package's __main__ (conftest.run_tool); no subprocess imports jax.
+Text outputs: byte equality."""
 
-import contextlib
 import gzip
 import importlib
 import io
@@ -15,7 +14,7 @@ import tarfile
 
 import pytest
 
-from conftest import fixture_path
+from conftest import fixture_path, jax_run, run_tool, wrap_60
 from test_torch_twin import one_torch_thread  # noqa: F401
 
 FX = fixture_path("synth")
@@ -26,52 +25,31 @@ def _f(name: str) -> str:
     return os.path.join(FX, name)
 
 
-def port_run(argv, monkeypatch=None, stdin=None):
-    """(exit code, stdout) of `python -m centrifuge_tpu_torch argv`, run in
-    this process through the port's __main__ dispatch."""
-    from centrifuge_tpu_torch.__main__ import run
-    return _capture(lambda: run(argv), monkeypatch, stdin)
+def port_run(argv, input_text=None):
+    """`python -m centrifuge_tpu_torch argv...`, run in this process."""
+    from centrifuge_tpu_torch.__main__ import main
+    return run_tool(main, argv, input_text)
 
 
-def jax_run(argv, monkeypatch=None, stdin=None):
-    """(exit code, stdout) of the JAX package's tool for argv, found in its
-    __main__ table."""
-    from centrifuge_tpu.__main__ import _TOOLS
-    mod, fn = _TOOLS[argv[0]]
-    tool = getattr(importlib.import_module(mod), fn)
-    return _capture(lambda: tool(argv[1:]), monkeypatch, stdin)
+def _read(name: str) -> str:
+    with open(_f(name)) as f:
+        return f.read()
 
 
-def _capture(call, monkeypatch, stdin):
-    if stdin is not None:
-        with open(_f(stdin)) as f:
-            monkeypatch.setattr(sys, "stdin", io.StringIO(f.read()))
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = call()
-    return rc, out.getvalue()
-
-
-def _wrap_60(path: str) -> str:
-    """A FASTA file re-wrapped at 60 chars a line: the reference inspect's
-    default output for an index of it (test_cli.py
-    test_inspect_fasta_byte_parity)."""
-    lines, seq = [], []
-
-    def flush():
-        s = "".join(seq)
-        lines.extend(s[i:i + 60] for i in range(0, len(s), 60))
-
-    with open(path) as f:
-        for line in f:
-            if line.startswith(">"):
-                flush()
-                lines.append(line.rstrip("\n"))
-                seq = []
-            else:
-                seq.append(line.strip())
-    flush()
-    return "\n".join(lines) + "\n"
+def test_tool_runner_maps_exits_like_a_process():
+    """run_tool gives what a process gave: CPython's exit codes, a traceback
+    on stderr, stdin as text and bytes, sys.stdin and sys.argv put back."""
+    stdin, argv, seen = sys.stdin, sys.argv, []
+    assert run_tool(lambda: sys.exit(2), []) == (2, "", "")
+    assert run_tool(lambda: sys.exit("msg"), []) == (1, "", "msg\n")
+    r = run_tool(lambda: int("bad read"), [])
+    assert r.returncode == 1 and "ValueError: invalid literal" in r.stderr
+    assert run_tool(lambda: print(sys.argv, sys.stdin.read()), ["x", "-"],
+                    "A\n") == (0, "['centrifuge', 'x', '-'] A\n\n", "")
+    run_tool(lambda: seen.append([*sys.stdin]), [], "A\nC\n")
+    run_tool(lambda: seen.append(sys.stdin.buffer.read()), [], "A\nC\n")
+    assert seen == [["A\n", "C\n"], b"A\nC\n"]
+    assert sys.stdin is stdin and sys.argv is argv
 
 
 # (argv, file fed on stdin, golden file)
@@ -108,28 +86,29 @@ TOOL_CASES = {
 
 
 @pytest.mark.parametrize("case", list(TOOL_CASES))
-def test_tool_matches_jax_and_golden(case, monkeypatch):
+def test_tool_matches_jax_and_golden(case):
     argv, stdin, golden = TOOL_CASES[case]
-    rc, got = port_run(argv, monkeypatch, stdin)
+    stdin = stdin and _read(stdin)
+    rc, got, _ = port_run(argv, stdin)
     assert rc == 0
-    with open(_f(golden)) as f:
-        assert got == f.read()
-    assert jax_run(argv, monkeypatch, stdin) == (0, got)
+    assert got == _read(golden)
+    assert jax_run(argv, stdin)[:2] == (0, got)
 
 
-def test_promote_genus_from_stdin_matches_jax(monkeypatch):
+def test_promote_genus_from_stdin_matches_jax():
     """No reference golden for genus: the port equals the JAX tool, and
     every species taxID (1000+) is promoted (test_cli.py
     test_promote_cli's rule)."""
     argv = ["promote", SYN, "-", "genus"]
-    rc, got = port_run(argv, monkeypatch, "golden_output.tsv")
+    rows = _read("golden_output.tsv")
+    rc, got, _ = port_run(argv, rows)
     assert rc == 0
     lines = got.splitlines()
     assert lines[0].startswith("readID") and len(lines) > 1
     for line in lines[1:]:
         tid = int(line.split("\t")[2])
         assert tid < 1000 or tid in (0, 1) or tid >= 10
-    assert jax_run(argv, monkeypatch, "golden_output.tsv") == (0, got)
+    assert jax_run(argv, rows)[:2] == (0, got)
 
 
 def build_argv(fasta: str, base: str):
@@ -163,10 +142,10 @@ def test_inspect_fasta_round_trip(tmp_path):
             out.write(line)
     base = str(tmp_path / "two")
     assert port_run(build_argv(fasta, base))[0] == 0
-    rc, got = port_run(["inspect", base])
+    rc, got, _ = port_run(["inspect", base])
     assert rc == 0
-    assert got == _wrap_60(fasta)
-    assert jax_run(["inspect", base]) == (0, got)
+    assert got == wrap_60(fasta)
+    assert jax_run(["inspect", base])[:2] == (0, got)
 
 
 def test_simulate_classify_evaluate(tmp_path):
@@ -178,7 +157,7 @@ def test_simulate_classify_evaluate(tmp_path):
     sims = {}
     for name, run in (("port", port_run), ("jax", jax_run)):
         prefix = str(tmp_path / name)
-        rc, _ = run(["simulate", "-x", _f("db.fa"), "--conversion-table",
+        rc, _, _ = run(["simulate", "-x", _f("db.fa"), "--conversion-table",
                      _f("conv.dmp"), "-o", prefix, "--num", "100",
                      "--seed", "3"])
         assert rc == 0
@@ -189,17 +168,17 @@ def test_simulate_classify_evaluate(tmp_path):
     assert sims["port"] == sims["jax"]
     prefix = str(tmp_path / "port")
     out = str(tmp_path / "c.tsv")
-    rc, _ = port_run(["classify", "-x", SYN, "-U", prefix + ".fq", "-S",
+    rc, _, _ = port_run(["classify", "-x", SYN, "-U", prefix + ".fq", "-S",
                       out, "--report-file", "", "--device", "cpu"])
     assert rc == 0
     db = str(tmp_path / "eval.sqlite")
     argv = ["evaluate", "-x", SYN, "--truth", prefix + ".truth", out]
-    rc, got = port_run(argv + ["--sql-db", db])
+    rc, got, _ = port_run(argv + ["--sql-db", db])
     assert rc == 0
     heads = [ln.split("\t")[0] for ln in got.splitlines()]
     assert heads == ["reads", "unclassified", "strain", "species", "genus",
                      "family", "order", "class", "phylum"]
-    assert jax_run(argv) == (0, got)
+    assert jax_run(argv)[:2] == (0, got)
     with sqlite3.connect(db) as con:
         rows = con.execute("SELECT version, numFragments FROM "
                            "Classification").fetchall()
@@ -275,10 +254,8 @@ def test_download_offline_matches_jax(argv, tmp_path, monkeypatch):
             return b"vector"
 
         monkeypatch.setattr(mod, "_fetch", fetch)
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out), \
-                contextlib.redirect_stderr(io.StringIO()):
-            assert mod.run(argv) == 0
+        rc, out, err = run_tool(lambda: mod.run(argv), argv)
+        assert rc == 0, err
         files = {}
         for root, _, fns in os.walk(tmp_path):
             for fn in fns:
@@ -286,7 +263,7 @@ def test_download_offline_matches_jax(argv, tmp_path, monkeypatch):
                 with open(p, "rb") as f:
                     files[os.path.relpath(p, tmp_path)] = f.read()
                 os.remove(p)
-        outs[name] = (urls, out.getvalue(), files)
+        outs[name] = (urls, out, files)
     assert outs["port"] == outs["jax"]
     assert outs["port"][0], "no URL was built"
 

@@ -481,11 +481,14 @@ class SearchHandle:
     """One dispatched search: the device outputs and their pinned host
     copies in flight (CUDA), or the finished arrays (CPU). With a
     presolve, the flat rows and their values travel behind the same
-    event."""
+    event. `reads` and `lengths` are the host tensors the launch uploads
+    (page-locked on a CUDA engine), kept until the handle goes;
+    `rseqp` and `lengths` are their numpy views."""
 
-    def __init__(self, rseqp, lengths, mh, lmax, nlanes, presolve=None):
-        self.rseqp = rseqp
-        self.lengths = lengths
+    def __init__(self, reads, lengths, mh, lmax, nlanes, presolve=None):
+        self.host_in = (reads, lengths)
+        self.rseqp = reads.numpy()
+        self.lengths = lengths.numpy()
         self.mh = mh
         self.lmax = lmax
         self.nlanes = nlanes
@@ -523,8 +526,9 @@ class BatchSearchEngine:
         self.lane_bucket_lo = 256
         self.lmax_lo = 32
         self.overflow_bucket_lo = 32   # lane bucket of the overflow re-run
-        self.stats = {"upload_bytes": 0, "download_bytes": 0,
-                      "ext_searches": 0, "ext_lanes": 0}
+        self.stats = {"upload_bytes": 0, "staged_upload_bytes": 0,
+                      "download_bytes": 0, "ext_searches": 0,
+                      "ext_lanes": 0}
         # the main thread and the tail worker both add to the counters
         self._stats_lock = threading.Lock()
         # every launch on the engine's stream holds this lock: the main
@@ -533,6 +537,9 @@ class BatchSearchEngine:
         self.dev_lock = threading.RLock()
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
+        # a launch's host inputs are page-locked on a CUDA engine
+        self._pin = self.device.type == "cuda"
+        self._zeros = None   # int32 zeros on the card: every start 0
 
     def add_stats(self, **deltas: int) -> None:
         """Add to the --met counters in `stats`, under their own lock: the
@@ -562,30 +569,49 @@ class BatchSearchEngine:
         return rseq, lengths
 
     @staticmethod
-    def transport(rseq: np.ndarray) -> np.ndarray:
-        """2 base codes per byte (codes are 0-4, 4 bits each)."""
+    def transport(rseq: np.ndarray, out: np.ndarray = None) -> np.ndarray:
+        """2 base codes per byte (codes are 0-4, 4 bits each), written
+        into `out` (uint8 [lanes, row_bytes]) when given."""
         if rseq.shape[1] % 2:
             rseq = np.concatenate(
                 [rseq, np.zeros((rseq.shape[0], 1), rseq.dtype)], axis=1)
-        return (((rseq[:, 0::2].astype(np.uint8)) & 15)
-                | (rseq[:, 1::2].astype(np.uint8) << 4))
+        return np.bitwise_or(rseq[:, 0::2].astype(np.uint8) & 15,
+                             rseq[:, 1::2].astype(np.uint8) << 4, out=out)
 
-    def pack_transport(self, seqs: List[np.ndarray], lmax: int,
-                       nlanes: int) -> Tuple[np.ndarray, np.ndarray]:
-        """The 2-codes-per-byte lane matrix the kernel reads, built by the
-        native packer (native/pack.cpp); numpy is the fallback."""
-        fc = self.fm.ftab_chars
-        row_bytes = (lmax + fc + 1) // 2
-        lengths = np.zeros(nlanes, dtype=np.int32)
+    def _host_lanes(self, nlanes: int, row_bytes: int):
+        """Empty host tensors for one launch's lanes (uint8 [nlanes,
+        row_bytes]) and lengths (int32 [nlanes], zeroed). On a CUDA engine
+        each is a fresh page-locked block from PyTorch's host cache: the
+        copy to the card needs no staging copy by the driver, and the
+        cache hands the block out again only once the copies queued from
+        it have run, so every launch, on any thread, has its own."""
+        return (torch.empty((nlanes, row_bytes), dtype=torch.uint8,
+                            pin_memory=self._pin),
+                torch.zeros(nlanes, dtype=torch.int32, pin_memory=self._pin))
+
+    def _pack_lanes(self, seqs: List[np.ndarray], lmax: int, nlanes: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pack_transport's lanes and lengths, written in place into the
+        host tensors a launch uploads (_host_lanes)."""
+        row_bytes = (lmax + self.fm.ftab_chars + 1) // 2
+        reads, lengths = self._host_lanes(nlanes, row_bytes)
         if seqs:
             from ..native.pack import pack_reads
             lens = np.fromiter((len(x) for x in seqs), np.int32, len(seqs))
-            lengths[: len(seqs)] = lens
-            packed = pack_reads(seqs, lens, nlanes, row_bytes)
-            if packed is not None:
-                return packed, lengths
-        rseq, lengths = self.pack(seqs, lmax, nlanes)
-        return self.transport(rseq), lengths
+            lengths.numpy()[: len(seqs)] = lens
+            if pack_reads(seqs, lens, nlanes, row_bytes,
+                          out=reads.numpy()) is not None:
+                return reads, lengths
+        self.transport(self.pack(seqs, lmax, nlanes)[0], out=reads.numpy())
+        return reads, lengths
+
+    def pack_transport(self, seqs: List[np.ndarray], lmax: int,
+                       nlanes: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The 2-codes-per-byte lane matrix the kernel reads and the lane
+        lengths, built by the native packer (native/pack.cpp); numpy is
+        the fallback. On a CUDA engine both view page-locked memory."""
+        reads, lengths = self._pack_lanes(seqs, lmax, nlanes)
+        return reads.numpy(), lengths.numpy()
 
     # ---- dispatch ----
 
@@ -594,13 +620,46 @@ class BatchSearchEngine:
         # (lane width lmax + 10 <= 2048); same rule, same outputs
         return self.fm.deep and lmax + self.fm.ftab_chars <= 2048
 
-    def _launch(self, handle: SearchHandle, start: np.ndarray,
-                first_hit_only: bool) -> SearchHandle:
+    def _zero_start(self, n: int) -> torch.Tensor:
+        """int32 [n] zeros on the card, on the current stream: a view of
+        one array the engine keeps, made by the first launch (the warm-up
+        batch) and again only for a launch of more lanes than it holds."""
+        if self._zeros is None or self._zeros.shape[0] < n:
+            self._zeros = torch.zeros(n, dtype=torch.int32,
+                                      device=self.device)
+        return self._zeros[:n]
+
+    def _inputs(self, handle: SearchHandle, start):
+        """The launch's (lanes, lengths, start) tensors, counted in stats.
+        start is None (every lane from offset 0) or an int32 [nlanes]
+        host tensor (page-locked on a CUDA engine). On a CPU engine the
+        host tensors themselves. On a CUDA engine each is copied to the
+        card on the current stream from its host tensor itself, so
+        PyTorch's host cache records the copy on the block; start None is
+        the card's zero array (_zero_start), so nothing is uploaded or
+        filled for it. staged_upload_bytes counts the lanes and lengths
+        that came from page-locked memory (upload_bytes: all of them)."""
+        reads, lens = handle.host_in
+        nbytes = reads.nbytes + lens.nbytes
+        if not self._pin:
+            self.add_stats(upload_bytes=nbytes)
+            if start is None:
+                start = torch.zeros(handle.nlanes, dtype=torch.int32)
+            return reads, lens, start
+        self.add_stats(upload_bytes=nbytes, staged_upload_bytes=sum(
+            t.nbytes for t in handle.host_in if t.is_pinned()))
+        dev = self.device
+        return (reads.to(dev, non_blocking=True),
+                lens.to(dev, non_blocking=True),
+                self._zero_start(handle.nlanes) if start is None
+                else start.to(dev, non_blocking=True))
+
+    def _launch(self, handle: SearchHandle, start, first_hit_only: bool
+                ) -> SearchHandle:
+        """Launch the handle's search; start as in _inputs."""
         fm = self.fm
         args = (handle.mh, self.min_hitlen, self.increment, first_hit_only,
                 self._deep(handle.lmax))
-        self.add_stats(upload_bytes=handle.rseqp.nbytes
-                       + handle.lengths.nbytes)
 
         def presolve(out):
             # from the first-pass buffers, as the JAX dispatch does: a
@@ -612,18 +671,11 @@ class BatchSearchEngine:
                                        ihits, self.min_hitlen, rk))
 
         if self._stream is None:
-            out = search_lanes(
-                fm, torch.from_numpy(handle.rseqp),
-                torch.from_numpy(handle.lengths), torch.from_numpy(start),
-                *args)
+            out = search_lanes(fm, *self._inputs(handle, start), *args)
             handle.host_out = out + presolve(out)
             return handle
         with self.dev_lock, torch.cuda.stream(self._stream):
-            dev = self.device
-            reads = torch.from_numpy(handle.rseqp).to(dev, non_blocking=True)
-            lens = torch.from_numpy(handle.lengths).to(dev,
-                                                       non_blocking=True)
-            st = torch.from_numpy(start).to(dev, non_blocking=True)
+            reads, lens, st = self._inputs(handle, start)
             out = search_lanes(fm, reads, lens, st, *args)
             out = out + presolve(out)
             host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
@@ -644,9 +696,9 @@ class BatchSearchEngine:
         self.add_stats(download_bytes=sum(a.nbytes for a in out))
         return out
 
-    def _run(self, rseqp, lengths, start, max_hits, first_hit_only,
+    def _run(self, reads, lengths, start, max_hits, first_hit_only,
              lmax) -> List[np.ndarray]:
-        h = SearchHandle(rseqp, lengths, max_hits, lmax, rseqp.shape[0])
+        h = SearchHandle(reads, lengths, max_hits, lmax, reads.shape[0])
         return self._wait(self._launch(h, start, first_hit_only))
 
     def search_async(self, seqs: List[np.ndarray], presolve: bool = False,
@@ -663,11 +715,11 @@ class BatchSearchEngine:
         maxlen = max((len(s) for s in seqs), default=1)
         lmax = _bucket_len(maxlen, lo=self.lmax_lo)
         nlanes = _bucket(L, lo=self.lane_bucket_lo)
-        rseqp, lengths = self.pack_transport(seqs, lmax, nlanes)
+        reads, lengths = self._pack_lanes(seqs, lmax, nlanes)
         mh = min(self.FIRST_MAX_HITS, lmax)
-        h = SearchHandle(rseqp, lengths, mh, lmax, nlanes, presolve=(
+        h = SearchHandle(reads, lengths, mh, lmax, nlanes, presolve=(
             khits, ihits, presolve_rk(khits)) if presolve else None)
-        return self._launch(h, np.zeros(nlanes, dtype=np.int32), False)
+        return self._launch(h, None, False)
 
     def search_fetch(self, handle: SearchHandle) -> SearchHandle:
         """Wait for the handle's outputs and re-run overflowing lanes: the
@@ -715,12 +767,12 @@ class BatchSearchEngine:
                         nlanes):
         """The lanes `over` re-run in a bucket of nover lanes with mh2 hit
         slots; every array widened to mh2 (other lanes' new slots 0)."""
-        rseq2 = np.zeros((nover, rseqp.shape[1]), dtype=rseqp.dtype)
+        reads2, lengths2 = self._host_lanes(nover, rseqp.shape[1])
+        rseq2 = reads2.numpy()
         rseq2[: over.shape[0]] = rseqp[over]
-        lengths2 = np.zeros(nover, dtype=np.int32)
-        lengths2[: over.shape[0]] = lengths[over]
-        full = self._run(rseq2, lengths2, np.zeros(nover, dtype=np.int32),
-                         mh2, False, lmax)
+        rseq2[over.shape[0]:] = 0
+        lengths2.numpy()[: over.shape[0]] = lengths[over]
+        full = self._run(reads2, lengths2, None, mh2, False, lmax)
         wide = [np.zeros((nlanes, mh2), a.dtype) if a.ndim == 2 else a
                 for a in out]
         for k in range(4):
@@ -743,10 +795,12 @@ class BatchSearchEngine:
         outs = []
         for c0 in range(0, L, chunk):
             part = seqs[c0: c0 + chunk]
-            rseqp, lengths = self.pack_transport(part, lmax, chunk)
-            start = np.zeros(chunk, dtype=np.int32)
-            start[: len(part)] = offsets[c0: c0 + chunk].astype(np.int32)
-            out = self._run(rseqp, lengths, start, 1, True, lmax)
+            reads, lengths = self._pack_lanes(part, lmax, chunk)
+            start = torch.zeros(chunk, dtype=torch.int32,
+                                pin_memory=self._pin)
+            start.numpy()[: len(part)] = offsets[c0: c0 + chunk].astype(
+                np.int32)
+            out = self._run(reads, lengths, start, 1, True, lmax)
             outs.append([a[: len(part)] for a in out])
         if len(outs) == 1:
             return outs[0]

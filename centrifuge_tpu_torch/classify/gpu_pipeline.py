@@ -296,6 +296,7 @@ class GPUClassificationPipeline:
         st = getattr(self.engine, "stats", None)
         if st is not None:
             self.metrics.upload_bytes = st["upload_bytes"]
+            self.metrics.staged_upload_bytes = st["staged_upload_bytes"]
             self.metrics.download_bytes = st["download_bytes"]
             self.metrics.ext_searches = st["ext_searches"]
             self.metrics.ext_lanes = st["ext_lanes"]

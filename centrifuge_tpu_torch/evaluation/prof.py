@@ -233,7 +233,7 @@ def replay_main_thread(pipe, batches, paired: bool) -> Dict[str, float]:
             with clock.step("tally_outer"):
                 pipe._tally_outer(b, active, flat3=flat3)
         with clock.step("dispatch"), \
-                clock.wrapping(eng, "pack_transport", "pack_transport"), \
+                clock.wrapping(eng, "_pack_lanes", "pack_transport"), \
                 clock.wrapping(eng, "_launch", "h2d_launch"):
             fut = pipe._dispatch_units(units, active)
         with clock.step("seeds"):

@@ -44,19 +44,27 @@ def _load():
 
 
 def pack_reads(seqs, lens: np.ndarray, nlanes: int, row_bytes: int,
-               nthreads: int = 0):
+               nthreads: int = 0, out: np.ndarray = None):
     """seqs: list of uint8 code arrays -> (nlanes, row_bytes) uint8
-    transport-packed matrix, or None if the native lib is unavailable."""
+    transport-packed matrix, or None if the native lib is unavailable.
+    With `out` (a C-contiguous uint8 (nlanes, row_bytes) array) the
+    matrix is written there, every byte of every row, padding lanes
+    included, and `out` is returned."""
     lib = _load()
     if lib is None:
         return None
+    if out is None:
+        out = np.empty((nlanes, row_bytes), np.uint8)
+    elif out.dtype != np.uint8 or out.shape != (nlanes, row_bytes) \
+            or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous uint8 ({nlanes}, "
+                         f"{row_bytes}) array")
     if len(seqs):
         allseq = np.ascontiguousarray(np.concatenate(seqs), np.uint8)
     else:
         allseq = np.zeros(1, np.uint8)
     lens = np.ascontiguousarray(lens, np.int32)
     starts = np.cumsum(lens, dtype=np.int64) - lens
-    out = np.empty((nlanes, row_bytes), np.uint8)
     if not nthreads:
         nthreads = min(8, os.cpu_count() or 1)
     lib.cf_pack_reads(allseq, starts, lens, len(seqs), row_bytes, out,

@@ -74,10 +74,10 @@ class MultihostSearchEngine(ShardedSearchEngine):
     def search_async(self, seqs, presolve: bool = False, khits: int = 5,
                      ihits: int = 200) -> SearchHandle:
         lmax, nlocal = self._dims(seqs)
-        rseqp, lengths = self.pack_transport(seqs, lmax, nlocal)
+        reads, lengths = self._pack_lanes(seqs, lmax, nlocal)
         mh = min(self.FIRST_MAX_HITS, lmax)
-        h = SearchHandle(rseqp, lengths, mh, lmax, nlocal)
-        return self._launch(h, np.zeros(nlocal, dtype=np.int32), False)
+        h = SearchHandle(reads, lengths, mh, lmax, nlocal)
+        return self._launch(h, None, False)
 
     def _handle_overflow(self, out, rseqp, lengths, mh, lmax, nlanes):
         over = np.nonzero(out[4] > mh)[0]

@@ -700,29 +700,21 @@ class ShardedSearchEngine(BatchSearchEngine):
                      ihits: int = 200):
         return super().search_async(seqs)
 
-    def _launch(self, handle, start: np.ndarray, first_hit_only: bool):
+    def _launch(self, handle, start, first_hit_only: bool):
         index = self.index
         args = (handle.mh, self.min_hitlen, self.increment, first_hit_only)
-        self.add_stats(upload_bytes=handle.rseqp.nbytes
-                       + handle.lengths.nbytes)
         if not index.on_cuda:
             handle.host_out = sharded_search(
-                index, torch.from_numpy(handle.rseqp),
-                torch.from_numpy(handle.lengths), torch.from_numpy(start),
-                *args)
+                index, *self._inputs(handle, start), *args)
             return handle
         with self.dev_lock, _on_streams(self._streams):
-            dev = index.device
-            out = sharded_search(
-                index, *[torch.from_numpy(a).to(dev, non_blocking=True)
-                         for a in (handle.rseqp, handle.lengths, start)],
-                *args)
+            out = sharded_search(index, *self._inputs(handle, start), *args)
             host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                     for o in out]
             for h, o in zip(host, out):
                 h.copy_(o, non_blocking=True)
             handle.event = torch.cuda.Event()
-            handle.event.record(self._streams[dev])
+            handle.event.record(self._streams[index.device])
             handle.device_out = out
             handle.host_out = host
         return handle

@@ -115,6 +115,7 @@ class PerfMetrics:
     ext_searches: int = 0
     ext_lanes: int = 0
     upload_bytes: int = 0
+    staged_upload_bytes: int = 0   # of upload_bytes, from page-locked memory
     download_bytes: int = 0
     collect_wait_secs: float = 0.0
     tail_wait_secs: float = 0.0    # main thread blocked on worker tails

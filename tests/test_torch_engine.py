@@ -243,8 +243,8 @@ def test_stats_counters_are_exact_across_threads(indexes):
     def work(k):
         go.wait()
         for _ in range(n_adds):
-            eng.add_stats(upload_bytes=k + 1, download_bytes=1,
-                          ext_searches=1, ext_lanes=2)
+            eng.add_stats(upload_bytes=k + 1, staged_upload_bytes=k + 1,
+                          download_bytes=1, ext_searches=1, ext_lanes=2)
 
     threads = [threading.Thread(target=work, args=(k,))
                for k in range(n_threads)]
@@ -260,6 +260,49 @@ def test_stats_counters_are_exact_across_threads(indexes):
         sys.setswitchinterval(interval)
     assert eng.stats == {
         "upload_bytes": n_adds * n_threads * (n_threads + 1) // 2,
+        "staged_upload_bytes": n_adds * n_threads * (n_threads + 1) // 2,
         "download_bytes": n_adds * n_threads,
         "ext_searches": n_adds * n_threads,
         "ext_lanes": 2 * n_adds * n_threads}
+
+
+@pytest.mark.parametrize("packer", ["native", "numpy"])
+@pytest.mark.parametrize("lmax", [150, 151, 160])   # row bytes 80, 81, 85
+def test_packers_write_every_byte_in_place(indexes, lanes, monkeypatch,
+                                           packer, lmax):
+    """The native packer (pack_reads) and the numpy fallback (pack, then
+    transport) write into a given buffer, pre-filled with 0xFF, the bytes
+    of a fresh native pack, padding lanes included (more lanes than
+    reads); pack_transport gives the same bytes by either packer. A CPU
+    engine stages in plain numpy and counts no page-locked upload."""
+    from centrifuge_tpu_torch.classify.engine import BatchSearchEngine
+    from centrifuge_tpu_torch.native import pack
+    eng = BatchSearchEngine(indexes[False, False][1], 22)
+    seqs = lanes[:37]
+    nlanes = 64
+    row_bytes = (lmax + 10 + 1) // 2
+    lens = np.array([len(x) for x in seqs], np.int32)
+    want = pack.pack_reads(seqs, lens, nlanes, row_bytes)
+    assert want.shape == (nlanes, row_bytes) and not want[len(seqs):].any()
+    buf = np.full((nlanes, row_bytes), 0xFF, np.uint8)
+    if packer == "native":
+        got = pack.pack_reads(seqs, lens, nlanes, row_bytes, out=buf)
+    else:
+        got = eng.transport(eng.pack(seqs, lmax, nlanes)[0], out=buf)
+    assert got is buf
+    np.testing.assert_array_equal(buf, want)
+    with pytest.raises(ValueError):
+        pack.pack_reads(seqs, lens, nlanes, row_bytes,
+                        out=np.empty((nlanes, row_bytes + 1), np.uint8))
+    if packer == "numpy":   # pack_transport takes the fallback
+        monkeypatch.setattr(pack, "pack_reads", lambda *a, **k: None)
+
+    rseqp, lengths = eng.pack_transport(seqs, lmax, nlanes)
+    assert type(rseqp) is np.ndarray and type(lengths) is np.ndarray
+    assert not torch.from_numpy(rseqp).is_pinned()
+    np.testing.assert_array_equal(rseqp, want)
+    np.testing.assert_array_equal(lengths[:len(seqs)], lens)
+    assert not lengths[len(seqs):].any()
+    eng.search(seqs[:4])
+    assert eng.stats["upload_bytes"] > 0
+    assert eng.stats["staged_upload_bytes"] == 0

@@ -31,9 +31,11 @@ The JAX package's counterpart is classify/tpu_pipeline.py.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from ..index.cf_io import CFIndex
 from ..io.fastx import ReadRec
@@ -427,10 +429,7 @@ class GPUClassificationPipeline:
 
             for b in batches:
                 if paired:
-                    prep = self._prep_paired(b)
-                    fut = self._dispatch_units(prep[0], prep[2])
-                    seeds = self._paired_seeds(b, prep[1])
-                    pending.append((b, prep, fut, seeds))
+                    pending.append(self._paired_main(b))
                 else:
                     flat3 = batch_flat_seqs(b)
                     units = self._prep_unpaired(b, flat3=flat3)
@@ -575,14 +574,29 @@ class GPUClassificationPipeline:
         from collections import deque
         pending = deque()
         for pairs in batches:
-            prep = self._prep_paired(pairs)
-            fut = self._dispatch_units(prep[0], prep[2])
-            seeds = self._paired_seeds(pairs, prep[1])
-            pending.append((pairs, prep, fut, seeds))
+            pending.append(self._paired_main(pairs))
             if len(pending) > 3:
                 yield self._finish_paired(*pending.popleft())
         while pending:
             yield self._finish_paired(*pending.popleft())
+
+    def _paired_main(self, pairs):
+        """The streams' main-thread work on a batch of pairs: the prep,
+        the dispatch, then the seeds while the device searches. The two
+        host steps add their wall time to `metrics.pair_prep_secs` and
+        `pair_seed_secs`, each under a profiler range of its own
+        (`pipeline.pair_prep`, `pipeline.pair_seeds`)."""
+        m = self.metrics
+        t0 = time.perf_counter()
+        with record_function("pipeline.pair_prep"):
+            prep = self._prep_paired(pairs)
+        m.pair_prep_secs += time.perf_counter() - t0
+        fut = self._dispatch_units(prep[0], prep[2])
+        t0 = time.perf_counter()
+        with record_function("pipeline.pair_seeds"):
+            seeds = self._paired_seeds(pairs, prep[1])
+        m.pair_seed_secs += time.perf_counter() - t0
+        return pairs, prep, fut, seeds
 
     def _prep_paired(self, pairs):
         units = []

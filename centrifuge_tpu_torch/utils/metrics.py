@@ -120,6 +120,8 @@ class PerfMetrics:
     collect_wait_secs: float = 0.0
     tail_wait_secs: float = 0.0    # main thread blocked on worker tails
     tail_run_secs: float = 0.0     # worker-thread tail occupancy
+    pair_prep_secs: float = 0.0    # main thread in the paired prep
+    pair_seed_secs: float = 0.0    # main thread in the paired seeds
     reads_classified: int = 0
     reads_unclassified: int = 0
     assignments: int = 0

@@ -31,6 +31,8 @@ _RANK = [_P, _P, _I64, _P, _P, _P, _I64, _P]
 _LEVEL1 = [_P, _P, _I64, _P, _P, _P, _P, _I64, _P]
 _SEARCH = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
            _I64, _I32, _I32, _I32, _I32, _I32, _P, _P]
+_SEARCH_POOL = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _I32,
+                _I32, _I32, _I32, _P, _P]
 _FTAB12 = [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P]
 _RESOLVE = [_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _P,
             _I64, _P, _P]
@@ -45,7 +47,7 @@ SIGNATURES = {
              "fm_lf_level1_narrow": _LEVEL1, "fm_lf_level1_wide": _LEVEL1,
              "fm_rank_config": _CONFIG, "fm_lf_level1_config": _CONFIG},
     "search": {"fm_search_narrow": _SEARCH, "fm_search_wide": _SEARCH,
-               "fm_search_config": _CONFIG},
+               "fm_search_pool": _SEARCH_POOL, "fm_search_config": _CONFIG},
     "ftab12": {"fm_ftab12_narrow": _FTAB12, "fm_ftab12_wide": _FTAB12,
                "fm_ftab12_config": _CONFIG},
     "resolve": {"fm_resolve_narrow": _RESOLVE, "fm_resolve_wide": _RESOLVE,
@@ -186,9 +188,11 @@ def persistent_config(kernel: str, wide: bool, n: int,
 
 
 def work_counter(device):
-    """The zeroed int32 counter a persistent kernel takes its items from."""
+    """The zeroed int32 counters of a persistent kernel: [0] the one it
+    takes its items from, [1] K1's hit-pool counter in pool mode (one
+    fill for both)."""
     import torch
-    return torch.zeros(1, dtype=torch.int32, device=device)
+    return torch.zeros(2, dtype=torch.int32, device=device)
 
 
 def require_aligned(*tensors) -> None:

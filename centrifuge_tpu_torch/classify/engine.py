@@ -18,6 +18,12 @@ resolves them on the same stream. On a CUDA device these are the
 kernels csrc/presolve.cu and csrc/resolve.cu; on the CPU the plain
 versions. Both give the JAX package's batched_search_presolve outputs.
 
+In pool mode (a batch search on a narrow index, without a presolve)
+K1 writes only the hits each lane emitted, as 12-byte records in one
+dense pool (HitPool), and the host copies back POOL_SLOTS_PER_LANE
+records a lane and each lane's base and counts: 104 bytes a lane where
+the padded [L, 16] buffers take 264.
+
 The host wrapper (BatchSearchEngine) keeps the interface the pipeline
 and native/engine.py call: search_async / search_fetch / search_collect,
 search, search_first_hits, and the stats / dev_lock / lane_bucket_lo /
@@ -41,6 +47,9 @@ FTAB_CHARS = 10
 PRESOLVE_ROWS_PER_MATE = 4   # flat presolve slots per mate
 PRESOLVE_MATES_PER_BLOCK = 32  # csrc/fm_common.cuh kPickMates
 PRESOLVE_MAX_RK = 128          # kPickMaxRk: presolve_rk's largest
+POOL_SLOTS_PER_LANE = 8   # pool records a lane in the first copy back
+POOL_MAX_WIDTH = 1 << 16  # a lane width at which off, len, nhits no
+                          # longer fit the records' 16-bit fields
 
 
 def _bucket(n: int, lo: int = 256) -> int:
@@ -290,19 +299,128 @@ def search_steps(tables, reads: torch.Tensor, lengths: torch.Tensor,
             nhits.to(i32), sums.to(i32)]
 
 
+# ---- K1's hit pool ----
+
+def pool_words(L: int, mh: int) -> int:
+    """int32 words of a pool-mode launch's buffer: room for L mh records
+    (3 words each), and each lane's base and tail."""
+    return 3 * L * mh + 2 * L
+
+
+def pool_pack_plain(outs, budget: int) -> torch.Tensor:
+    """The pool buffer of a pool-mode launch from the padded outputs
+    [h_top, h_bot, h_off, h_len, nhits, sums] (narrow, on the CPU): the
+    `budget` first records, base [L] (0 for a lane without hits), tail
+    [L], then the records from `budget` on; words past the last record 0.
+    Records go lane after lane (the kernel's go in the order lanes
+    end)."""
+    h_top, h_bot, h_off, h_len, nhits, sums = outs
+    L, mh = h_top.shape
+    nh = nhits.to(torch.int64).clamp(max=mh)
+    used = torch.arange(mh)[None, :] < nh[:, None]
+    offlen = (h_off.to(torch.int64) << 16) | h_len.to(torch.int64)
+    flat = torch.stack([h_top.to(torch.int64), h_bot.to(torch.int64),
+                        offlen], dim=2)[used].reshape(-1)
+    buf = torch.zeros(pool_words(L, mh), dtype=torch.int64)
+    lo = 3 * budget
+    head = min(flat.numel(), lo)
+    buf[:head] = flat[:head]
+    # an empty lane's base is 0, as the kernel writes it
+    buf[lo: lo + L] = torch.where(nh > 0, torch.cumsum(nh, 0) - nh, 0)
+    buf[lo + L: lo + 2 * L] = (nhits.to(torch.int64) << 16) \
+        | sums.to(torch.int64)
+    buf[lo + 2 * L: lo + 2 * L + flat.numel() - head] = flat[head:]
+    # int32 words, as the kernel writes them (a record's third word and a
+    # tail wrap past 2^31)
+    return ((buf + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
+class HitPool:
+    """K1's hits in pool form: `records` int32 [n, 3], each
+    {top, bot, off << 16 | len}; lane l's min(nhits, mh) hits, in
+    emission order, are records[base[l]:], and tail[l] is
+    nhits << 16 | sums. Records of different lanes lie in any order."""
+
+    def __init__(self, records: np.ndarray, base: np.ndarray,
+                 tail: np.ndarray, mh: int):
+        self.records = records
+        self.base = base
+        self.tail = tail
+        self.mh = mh
+
+    @classmethod
+    def of_buffer(cls, buf: np.ndarray, L: int, mh: int,
+                  budget: int) -> "HitPool":
+        """The HitPool of a whole pool buffer (pool_words(L, mh) int32
+        words on the host, laid out as pool_pack_plain says), holding the
+        records the lanes wrote and no more."""
+        lo = 3 * budget
+        base, tail = buf[lo: lo + L], buf[lo + L: lo + 2 * L]
+        total = int(np.minimum((tail >> 16) & 0xFFFF, mh).sum())
+        rest = buf[lo + 2 * L: lo + 2 * L + 3 * max(0, total - budget)]
+        return cls(np.concatenate([buf[: 3 * min(total, budget)], rest])
+                   .reshape(-1, 3), base, tail, mh)
+
+    @property
+    def nhits(self) -> np.ndarray:
+        return (self.tail >> 16) & 0xFFFF
+
+    @property
+    def sums(self) -> np.ndarray:
+        return self.tail & 0xFFFF
+
+    def head(self, L: int) -> "HitPool":
+        """The first L lanes."""
+        return HitPool(self.records, self.base[:L], self.tail[:L], self.mh)
+
+    def expand(self) -> List[np.ndarray]:
+        """The padded arrays [h_top, h_bot, h_off, h_len, nhits, sums]
+        ([L, mh] hits, unused slots (-1, -1, 0, 0)): what a padded launch
+        gives for the same lanes."""
+        L, mh = self.base.shape[0], self.mh
+        nhits = self.nhits.astype(np.int32)
+        nh = np.minimum(nhits, mh).astype(np.int64)
+        lanes = np.repeat(np.arange(L, dtype=np.int64), nh)
+        slots = np.arange(lanes.shape[0], dtype=np.int64) \
+            - np.repeat(np.cumsum(nh) - nh, nh)
+        rec = self.records[self.base[lanes].astype(np.int64) + slots]
+        out = [np.full((L, mh), -1, np.int32), np.full((L, mh), -1, np.int32),
+               np.zeros((L, mh), np.int32), np.zeros((L, mh), np.int32)]
+        out[0][lanes, slots] = rec[:, 0]
+        out[1][lanes, slots] = rec[:, 1]
+        out[2][lanes, slots] = (rec[:, 2] >> 16) & 0xFFFF
+        out[3][lanes, slots] = rec[:, 2] & 0xFFFF
+        return out + [nhits, self.sums.astype(np.int32)]
+
+
+def hit_arrays(arrays) -> List[np.ndarray]:
+    """A search's per-lane outputs as the padded arrays [h_top, h_bot,
+    h_off, h_len, nhits, sums], from a HitPool or as they are."""
+    return arrays.expand() if isinstance(arrays, HitPool) else arrays
+
+
 def search_lanes(fm: DeviceFMIndex, reads: torch.Tensor,
                  lengths: torch.Tensor, start: torch.Tensor, mh: int,
                  min_hitlen: int, increment: int, first_hit_only: bool,
-                 deep: bool, stats: dict = None):
+                 deep: bool, stats: dict = None, pool_budget: int = 0):
     """K1 over all lanes: the CUDA kernel for tensors on a CUDA device
     (csrc/search.cu: a tile of threads a lane, lanes taken from a work
     counter), the plain version for tensors on the CPU. reads: uint8
     [L, row_bytes] reversed codes, two per byte; lengths/start: int32
     [L]. Returns [h_top, h_bot, h_off, h_len, nhits, sums] on the
-    inputs' device."""
+    inputs' device; with pool_budget (records; narrow index, not
+    first_hit_only, every lane narrower than POOL_MAX_WIDTH) pool mode:
+    [the int32 pool buffer of pool_words(L, mh) words] (pool_pack_plain
+    says its layout)."""
+    if pool_budget and (fm.wide or first_hit_only
+                        or pool_budget > reads.shape[0] * mh):
+        raise ValueError("pool mode takes a narrow index, whole lanes and "
+                         "a budget of at most mh records a lane")
     if not reads.is_cuda:
-        return search_plain(fm, reads, lengths, start, mh, min_hitlen,
+        outs = search_plain(fm, reads, lengths, start, mh, min_hitlen,
                             increment, first_hit_only, deep, stats=stats)
+        return [pool_pack_plain(outs, pool_budget)] if pool_budget \
+            else outs
     _cuda.require_cuda(fm.blocks, fm.ftab_rows, fm.fchr, reads, lengths,
                        start, fm.ftab12_rows)
     L = reads.shape[0]
@@ -318,6 +436,20 @@ def search_lanes(fm: DeviceFMIndex, reads: torch.Tensor,
     _cuda.require_aligned(fm.blocks, fm.ftab_rows,
                           fm.ftab12_rows if deep else None)
     dev = reads.device
+    lib = _cuda.lib("search")
+    if pool_budget:
+        buf = torch.empty(pool_words(L, mh), dtype=torch.int32, device=dev)
+        rc = lib.fm_search_pool(
+            fm.blocks.data_ptr(), fm.fchr.data_ptr(), int(fm.zoff),
+            fm.ftab_rows.data_ptr(),
+            fm.ftab12_rows.data_ptr() if deep else None, reads.data_ptr(),
+            reads.shape[1], lengths.data_ptr(), start.data_ptr(),
+            buf.data_ptr(), pool_budget, L, mh, min_hitlen, increment,
+            int(deep), _cuda.work_counter(dev).data_ptr(),
+            _cuda.stream_ptr(dev))
+        _cuda.check(rc, "search kernel")
+        _cuda.LAUNCHES["search"] += 1
+        return [buf]
     idt = fm.row_dtype
     outs = [torch.empty((L, mh), dtype=idt, device=dev),
             torch.empty((L, mh), dtype=idt, device=dev),
@@ -325,7 +457,6 @@ def search_lanes(fm: DeviceFMIndex, reads: torch.Tensor,
             torch.empty((L, mh), dtype=torch.int32, device=dev),
             torch.empty(L, dtype=torch.int32, device=dev),
             torch.empty(L, dtype=torch.int32, device=dev)]
-    lib = _cuda.lib("search")
     fn = lib.fm_search_wide if fm.wide else lib.fm_search_narrow
     rc = fn(fm.blocks.data_ptr(), fm.fchr.data_ptr(), int(fm.zoff),
             fm.ftab_rows.data_ptr(),
@@ -483,9 +614,11 @@ class SearchHandle:
     presolve, the flat rows and their values travel behind the same
     event. `reads` and `lengths` are the host tensors the launch uploads
     (page-locked on a CUDA engine), kept until the handle goes;
-    `rseqp` and `lengths` are their numpy views."""
+    `rseqp` and `lengths` are their numpy views. `pool`: the records a
+    pool-mode launch copies back at first (0: padded buffers)."""
 
-    def __init__(self, reads, lengths, mh, lmax, nlanes, presolve=None):
+    def __init__(self, reads, lengths, mh, lmax, nlanes, presolve=None,
+                 pool=0):
         self.host_in = (reads, lengths)
         self.rseqp = reads.numpy()
         self.lengths = lengths.numpy()
@@ -493,10 +626,11 @@ class SearchHandle:
         self.lmax = lmax
         self.nlanes = nlanes
         self.presolve = presolve  # (khits, ihits, rk), or None
+        self.pool = pool
         self.device_out = None   # device tensors kept alive until fetched
         self.host_out = None     # pinned host tensors (CUDA) / CPU tensors
         self.event = None
-        self.arrays = None       # the 6 numpy arrays, once fetched
+        self.arrays = None       # a HitPool or the 6 arrays, once fetched
         self.prefetch = None     # (flat rows, values) numpy, once fetched
 
     @property
@@ -510,6 +644,9 @@ class BatchSearchEngine:
     Lane counts and read lengths are bucketed (padding lanes have length
     0 and finish at once). The hit buffer starts small (16 slots, the
     common case); lanes that emit more are re-run with a larger one.
+    A batch search takes pool mode where _pool_budget allows it; the
+    re-run, the first-hit searches and a presolving dispatch keep the
+    padded buffers.
     """
 
     FIRST_MAX_HITS = 16
@@ -527,8 +664,8 @@ class BatchSearchEngine:
         self.lmax_lo = 32
         self.overflow_bucket_lo = 32   # lane bucket of the overflow re-run
         self.stats = {"upload_bytes": 0, "staged_upload_bytes": 0,
-                      "download_bytes": 0, "ext_searches": 0,
-                      "ext_lanes": 0}
+                      "download_bytes": 0, "pooled_download_bytes": 0,
+                      "pool_spills": 0, "ext_searches": 0, "ext_lanes": 0}
         # the main thread and the tail worker both add to the counters
         self._stats_lock = threading.Lock()
         # every launch on the engine's stream holds this lock: the main
@@ -620,6 +757,17 @@ class BatchSearchEngine:
         # (lane width lmax + 10 <= 2048); same rule, same outputs
         return self.fm.deep and lmax + self.fm.ftab_chars <= 2048
 
+    def _pool_budget(self, nlanes: int, lmax: int, presolve: bool,
+                     mh: int) -> int:
+        """The pool records a batch search copies back at first, or 0 for
+        the padded buffers: pool mode takes a narrow index, lanes whose
+        offsets and lengths fit 16 bits, and no presolve (K5 reads the
+        padded buffers)."""
+        if self.fm.wide or presolve \
+                or lmax + self.fm.ftab_chars >= POOL_MAX_WIDTH:
+            return 0
+        return min(POOL_SLOTS_PER_LANE, mh) * nlanes
+
     def _zero_start(self, n: int) -> torch.Tensor:
         """int32 [n] zeros on the card, on the current stream: a view of
         one array the engine keeps, made by the first launch (the warm-up
@@ -671,16 +819,22 @@ class BatchSearchEngine:
                                        ihits, self.min_hitlen, rk))
 
         if self._stream is None:
-            out = search_lanes(fm, *self._inputs(handle, start), *args)
+            out = search_lanes(fm, *self._inputs(handle, start), *args,
+                               pool_budget=handle.pool)
             handle.host_out = out + presolve(out)
             return handle
         with self.dev_lock, torch.cuda.stream(self._stream):
             reads, lens, st = self._inputs(handle, start)
-            out = search_lanes(fm, reads, lens, st, *args)
+            out = search_lanes(fm, reads, lens, st, *args,
+                               pool_budget=handle.pool)
             out = out + presolve(out)
+            # pool mode: the budget's records and the lanes' bases and
+            # tails, in one copy
+            sent = [out[0][: 3 * handle.pool + 2 * handle.nlanes]] \
+                if handle.pool else out
             host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                    for o in out]
-            for h, o in zip(host, out):
+                    for o in sent]
+            for h, o in zip(host, sent):
                 h.copy_(o, non_blocking=True)
             handle.event = torch.cuda.Event()
             handle.event.record(self._stream)
@@ -688,13 +842,43 @@ class BatchSearchEngine:
             handle.host_out = host
         return handle
 
-    def _wait(self, handle: SearchHandle) -> List[np.ndarray]:
+    def _wait(self, handle: SearchHandle):
+        """The launch's outputs on the host: a HitPool in pool mode, else
+        the numpy arrays (the 6 outputs, then any presolve's two)."""
         if handle.event is not None:
             handle.event.synchronize()
-            handle.device_out = None
+        if handle.pool:
+            return self._fetch_pool(handle)
+        handle.device_out = None
         out = [t.numpy() for t in handle.host_out]
         self.add_stats(download_bytes=sum(a.nbytes for a in out))
         return out
+
+    def _fetch_pool(self, handle: SearchHandle) -> HitPool:
+        """The HitPool of a pool-mode launch whose first copy has landed.
+        Where the lanes hold more records than the budget, the rest come
+        in a second copy (a spill)."""
+        L, budget = handle.nlanes, handle.pool
+        lo = 3 * budget
+        buf = handle.host_out[0].numpy()
+        head = buf[: lo + 2 * L]
+        base, tail = head[lo: lo + L], head[lo + L:]
+        total = int(np.minimum((tail >> 16) & 0xFFFF, handle.mh).sum())
+        records = head[:lo].reshape(budget, 3)
+        nbytes, spills = head.nbytes, 0
+        if total > budget:
+            rest = slice(lo + 2 * L, lo + 2 * L + 3 * (total - budget))
+            if handle.device_out is None:   # a CPU engine: all on the host
+                more = buf[rest]
+            else:
+                with self.dev_lock, torch.cuda.stream(self._stream):
+                    more = handle.device_out[3][0][rest].cpu().numpy()
+            records = np.concatenate([records, more.reshape(-1, 3)])
+            nbytes, spills = nbytes + more.nbytes, 1
+        handle.device_out = None
+        self.add_stats(download_bytes=nbytes, pooled_download_bytes=nbytes,
+                       pool_spills=spills)
+        return HitPool(records, base, tail, handle.mh)
 
     def _run(self, reads, lengths, start, max_hits, first_hit_only,
              lmax) -> List[np.ndarray]:
@@ -718,7 +902,8 @@ class BatchSearchEngine:
         reads, lengths = self._pack_lanes(seqs, lmax, nlanes)
         mh = min(self.FIRST_MAX_HITS, lmax)
         h = SearchHandle(reads, lengths, mh, lmax, nlanes, presolve=(
-            khits, ihits, presolve_rk(khits)) if presolve else None)
+            khits, ihits, presolve_rk(khits)) if presolve else None,
+            pool=self._pool_budget(nlanes, lmax, presolve, mh))
         return self._launch(h, None, False)
 
     def search_fetch(self, handle: SearchHandle) -> SearchHandle:
@@ -729,37 +914,45 @@ class BatchSearchEngine:
             out = self._wait(handle)
             if handle.presolve is not None:
                 handle.prefetch = (out[6], out[7])
+                out = out[:6]
             handle.arrays = self._handle_overflow(
-                out[:6], handle.rseqp, handle.lengths, handle.mh,
+                out, handle.rseqp, handle.lengths, handle.mh,
                 handle.lmax, handle.nlanes)
         return handle
 
     def search_collect(self, handle: SearchHandle, L: int):
-        """([h_top, h_bot, h_off, h_len, nhits, sums] of the first L lanes,
-        prefetch): prefetch is (rows, values) sorted by row (a stable
-        sort) when the dispatch presolved, else None."""
+        """(the first L lanes' hits, prefetch): the hits are a HitPool
+        from a pool-mode launch without overflow, else [h_top, h_bot,
+        h_off, h_len, nhits, sums] (hit_arrays gives these of either);
+        prefetch is (rows, values) sorted by row (a stable sort) when the
+        dispatch presolved, else None."""
         handle = self.search_fetch(handle)
         prefetch = None
         if handle.prefetch is not None:
             rows, tidx = handle.prefetch
             order = np.argsort(rows, kind="stable")
             prefetch = (rows[order], tidx[order])
+        if isinstance(handle.arrays, HitPool):
+            return handle.arrays.head(L), prefetch
         return [a[:L] for a in handle.arrays], prefetch
 
     def search(self, seqs: List[np.ndarray]) -> List[np.ndarray]:
         """Full scan of each sequence; returns the per-lane hit arrays."""
-        h = self.search_fetch(self.search_async(seqs))
-        return [a[: len(seqs)] for a in h.arrays]
+        return hit_arrays(self.search_collect(self.search_async(seqs),
+                                              len(seqs))[0])
 
     def _handle_overflow(self, out, rseqp, lengths, mh, lmax, nlanes):
-        over = np.nonzero(out[4] > mh)[0]
+        """out: a HitPool or the padded arrays; a lane past mh hits makes
+        them padded arrays, widened by the re-run's."""
+        nhits = out.nhits if isinstance(out, HitPool) else out[4]
+        over = np.nonzero(nhits > mh)[0]
         if over.shape[0]:
             # rare: a lane emitted more hits than the small buffer holds.
             # Re-run only those lanes, sized to the actual max hit count.
             out = self._rerun_overflow(
-                out, over, _bucket(over.shape[0],
-                                   lo=self.overflow_bucket_lo),
-                min(_bucket(int(out[4].max()), lo=2 * mh), lmax), rseqp,
+                hit_arrays(out), over, _bucket(over.shape[0],
+                                               lo=self.overflow_bucket_lo),
+                min(_bucket(int(nhits.max()), lo=2 * mh), lmax), rseqp,
                 lengths, lmax, nlanes)
         return out
 

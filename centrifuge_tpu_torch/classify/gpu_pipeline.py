@@ -43,7 +43,7 @@ from ..ops.fm_torch import DeviceFMIndex, make_resolver
 from ..utils.rng import LCG, gen_read_seed, gen_read_seeds_batch
 from .algo import (OFF_MASK, Classifier, PartialHit, StrandState,
                    extend_and_filter, select_results)
-from .engine import BatchSearchEngine
+from .engine import BatchSearchEngine, hit_arrays
 from .pipeline import (DEFAULT_COLUMNS, PipelineConfig, ResultFormatter,
                        SpeciesMetrics, batch_flat_seqs, batch_read_passes,
                        batch_revcomp, format_read_id)
@@ -300,6 +300,8 @@ class GPUClassificationPipeline:
             self.metrics.upload_bytes = st["upload_bytes"]
             self.metrics.staged_upload_bytes = st["staged_upload_bytes"]
             self.metrics.download_bytes = st["download_bytes"]
+            self.metrics.pooled_download_bytes = st["pooled_download_bytes"]
+            self.metrics.pool_spills = st["pool_spills"]
             self.metrics.ext_searches = st["ext_searches"]
             self.metrics.ext_lanes = st["ext_lanes"]
         bw = getattr(self.resolver, "bwops", None)
@@ -775,6 +777,7 @@ class GPUClassificationPipeline:
             if not lane_seqs:
                 return [[] for _ in units]
             arrays, _ = self.engine.search_collect(handle, len(lane_seqs))
+            arrays = hit_arrays(arrays)
         else:
             lane_seqs = []
             lane_map: List[Tuple[int, int, int]] = []  # (unit, mate, strand)

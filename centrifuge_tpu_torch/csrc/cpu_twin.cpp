@@ -157,6 +157,41 @@ int64_t search_all(const void* blocks, const void* fchr, int64_t zoff,
                     [&](auto g) { return search_lanes<R>(t, a, L, g); });
 }
 
+// search_all in pool mode, narrow rows: the pool buffer as csrc/search.cu
+// lays it out (budget records, base [L], tail [L], the records from
+// budget on), the lanes run in order, so their records lie lane after
+// lane.
+int64_t search_pool_all(const void* blocks, const void* fchr, int64_t zoff,
+                        const void* ftab, const void* ftab12,
+                        const void* reads, int64_t row_bytes,
+                        const void* lengths, const void* start, void* pool,
+                        int64_t budget, int64_t L, int32_t mh,
+                        int32_t min_hitlen, int32_t increment, int32_t deep,
+                        int32_t group) {
+  using R = int32_t;
+  fm::FlatTables<R> t{};
+  t.blocks = (const uint32_t*)blocks;
+  t.fchr = (const R*)fchr;
+  t.zoff = (R)zoff;
+  t.ftab = (const uint32_t*)ftab;
+  t.ftab12 = deep ? (const uint32_t*)ftab12 : nullptr;
+  fm::SearchArgs<R> a = search_args<R>(
+      reads, row_bytes, lengths, start, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, mh, min_hitlen, increment, 0);
+  int32_t next = 0;
+  a.pool = (int32_t*)pool;
+  a.budget = budget;
+  a.base = a.pool + 3 * budget;
+  a.tail = a.base + L;
+  a.spill = a.tail + L;
+  a.pool_next = &next;
+  std::vector<int32_t> stage(fm::stage_words(mh));
+  return with_group(group, [&](auto g) {
+    g.stage_buf = stage.data();
+    return search_lanes<R>(t, a, L, g);
+  });
+}
+
 // K4's 2^22 level-1 ranges (fm_common.cuh level1_range, ftab12_range),
 // run by the group of `group` parts.
 template <typename R>
@@ -381,3 +416,14 @@ int64_t shard_resolve_all(const int64_t* desc, const void* brows,
 
 TWIN(narrow, int32_t)
 TWIN(wide, int64_t)
+
+extern "C" int64_t twin_search_pool(
+    const void* blocks, const void* fchr, int64_t zoff, const void* ftab,
+    const void* ftab12, const void* reads, int64_t row_bytes,
+    const void* lengths, const void* start, void* pool, int64_t budget,
+    int64_t L, int32_t mh, int32_t min_hitlen, int32_t increment,
+    int32_t deep, int32_t group) {
+  return search_pool_all(blocks, fchr, zoff, ftab, ftab12, reads, row_bytes,
+                         lengths, start, pool, budget, L, mh, min_hitlen,
+                         increment, deep, group);
+}

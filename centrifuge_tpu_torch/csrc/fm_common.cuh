@@ -333,9 +333,15 @@ struct SerialVals {
   FM_HDM T at(int k) const { return v[k]; }
 };
 
+// A group's stage for K1's pool mode (stage_words(mh) words: 3 mh, and
+// one more so that the stages of a warp's tiles start in different banks)
+FM_HD int stage_words(int mh) { return 3 * mh + 1; }
+
 template <int G>
 struct Serial {
   static constexpr int kG = G;
+  int32_t* stage_buf = nullptr;  // the caller's stage (the twin's loop)
+  FM_HDM int32_t* stage(int) const { return stage_buf; }
   template <typename Part>
   FM_HDM auto sum(const Part& part) const -> decltype(part(0)) {
     decltype(part(0)) s = 0;
@@ -371,6 +377,13 @@ struct Serial {
   FM_HDM int rank() const { return 0; }
   FM_HDM int size() const { return 1; }
   FM_HDM void sync() const {}
+  // n items reserved on a counter that only this group adds to: the
+  // twin's loop over lanes, the one caller in pool mode (K6 runs padded)
+  FM_HDM int64_t reserve(int32_t* next, int n) const {
+    const int32_t v = *next;
+    *next = v + n;
+    return (int64_t)v;
+  }
 };
 
 #if defined(__CUDACC__)
@@ -397,6 +410,16 @@ template <int G>
 struct Tile {
   static constexpr int kG = G;
   cg::thread_block_tile<G> tile;
+  // the tile's stage: its part of the block's dynamic shared memory
+  FM_HDM int32_t* stage(int mh) const {
+#if defined(__CUDA_ARCH__)
+    extern __shared__ int32_t fm_tile_stages[];
+    return fm_tile_stages + threadIdx.x / G * stage_words(mh);
+#else
+    (void)mh;
+    return nullptr;
+#endif
+  }
   template <typename Part>
   FM_HDM auto sum(const Part& part) const -> decltype(part(0)) {
     using T = decltype(part(0));
@@ -447,12 +470,16 @@ struct Tile {
   }
   // the next work item: the leader's atomicAdd on the counter, broadcast
   // to the tile
-  FM_HDM int64_t take(int32_t* next) const {
+  FM_HDM int64_t take(int32_t* next) const { return reserve(next, 1); }
+  // n items reserved the same way: the first of them
+  FM_HDM int64_t reserve(int32_t* next, int n) const {
 #if defined(__CUDA_ARCH__)
     int32_t v = 0;
-    if (tile.thread_rank() == 0) v = atomicAdd(next, 1);
+    if (tile.thread_rank() == 0) v = atomicAdd(next, n);
     return (int64_t)tile.shfl(v, 0);
 #else
+    (void)next;
+    (void)n;
     return 0;
 #endif
   }
@@ -881,6 +908,19 @@ struct SearchArgs {
   int32_t min_hitlen;
   int32_t increment;
   int32_t first_hit_only;
+  // Pool mode (pool set; narrow rows only): the h_* buffers and nhits,
+  // sums are unused. A lane's min(nh, mh) hits, in emission order, go to
+  // the records [base[lane], base[lane] + n) of a dense pool shared by
+  // all lanes, n reserved on *pool_next when the lane ends; a record is
+  // {top, bot, off << 16 | len} (int32), record j at pool + 3 j below
+  // `budget`, at spill + 3 (j - budget) from it; tail[lane] is
+  // nh << 16 | sum.
+  int32_t* pool = nullptr;
+  int32_t* spill = nullptr;
+  int64_t budget = 0;
+  int32_t* base = nullptr;  // [L]
+  int32_t* tail = nullptr;  // [L]
+  int32_t* pool_next = nullptr;
 };
 
 // base code at position pos of a lane's reversed read (0-3, 4 = N)
@@ -903,7 +943,10 @@ FM_HD int read_code(const uint8_t* rd, int pos) {
 // With a depth-12 table (t.deep()) a start first tries the 12-char prime.
 // The group g runs the lane: its threads clear the slots between them,
 // and the leader writes each hit, in emission order, after they have (so
-// an overflowing lane's last slot ends as its last hit).
+// an overflowing lane's last slot ends as its last hit). In pool mode
+// (SearchArgs.pool) the leader writes each hit to the group's stage
+// (g.stage) instead, by the same slot rule, and the lane's end moves the
+// staged records to the pool.
 template <typename R>
 struct SearchLane {
   int64_t lane;
@@ -916,13 +959,32 @@ struct SearchLane {
   R top, bot;
 };
 
-// the lane's counts, once it is done
+// the lane's counts, once it is done; in pool mode also its records: the
+// leader reserves them with one add on the pool counter, and the group
+// copies them from its stage
 template <typename R, typename Grp>
 FM_HD void search_end(const SearchArgs<R>& a, const Grp& g,
                       const SearchLane<R>& s) {
+  if (a.pool == nullptr) {
+    if (g.leader()) {
+      a.nhits[s.lane] = s.nh;
+      a.sums[s.lane] = s.sum;
+    }
+    return;
+  }
+  const int n = s.nh < a.mh ? s.nh : a.mh;
+  const int64_t b = n > 0 ? g.reserve(a.pool_next, n) : 0;
+  g.sync();  // the leader's staged records, to every thread of the group
+  const int32_t* stage = g.stage(a.mh);
+  for (int k = g.rank(); k < 3 * n; k += g.size()) {
+    const int64_t j = b + k / 3;
+    int32_t* rec = j < a.budget ? a.pool + 3 * j
+                                : a.spill + 3 * (j - a.budget);
+    rec[k % 3] = stage[k];
+  }
   if (g.leader()) {
-    a.nhits[s.lane] = s.nh;
-    a.sums[s.lane] = s.sum;
+    a.base[s.lane] = (int32_t)b;
+    a.tail[s.lane] = (int32_t)((uint32_t)s.nh << 16 | (uint32_t)s.sum);
   }
 }
 
@@ -930,16 +992,20 @@ FM_HD void search_end(const SearchArgs<R>& a, const Grp& g,
 template <typename R, typename Grp>
 FM_HD bool search_begin(const SearchArgs<R>& a, int64_t lane, const Grp& g,
                         SearchLane<R>* s) {
-  R* ht = a.h_top + lane * a.mh;
-  R* hb = a.h_bot + lane * a.mh;
-  int32_t* ho = a.h_off + lane * a.mh;
-  int32_t* hl = a.h_len + lane * a.mh;
-  for (int k = g.rank(); k < a.mh; k += g.size()) {
-    ht[k] = -1;
-    hb[k] = -1;
-    ho[k] = 0;
-    hl[k] = 0;
+  if (a.pool == nullptr) {
+    R* ht = a.h_top + lane * a.mh;
+    R* hb = a.h_bot + lane * a.mh;
+    int32_t* ho = a.h_off + lane * a.mh;
+    int32_t* hl = a.h_len + lane * a.mh;
+    for (int k = g.rank(); k < a.mh; k += g.size()) {
+      ht[k] = -1;
+      hb[k] = -1;
+      ho[k] = 0;
+      hl[k] = 0;
+    }
   }
+  // the slots cleared, or the stage's last lane copied out, before the
+  // leader writes a hit
   g.sync();
   s->lane = lane;
   s->rd = a.reads + lane * a.row_bytes;
@@ -1050,11 +1116,19 @@ FM_HD bool search_step(const T& t, const SearchArgs<R>& a,
   }
   // ---- emit ----
   if (g.leader()) {
-    const int64_t slot = s.lane * a.mh + (s.nh < a.mh ? s.nh : a.mh - 1);
-    a.h_top[slot] = e_top;
-    a.h_bot[slot] = e_bot;
-    a.h_off[slot] = s.cur;
-    a.h_len[slot] = e_len;
+    const int k = s.nh < a.mh ? s.nh : a.mh - 1;
+    if (a.pool != nullptr) {
+      int32_t* rec = g.stage(a.mh) + 3 * k;
+      rec[0] = (int32_t)e_top;
+      rec[1] = (int32_t)e_bot;
+      rec[2] = (int32_t)((uint32_t)s.cur << 16 | (uint32_t)e_len);
+    } else {
+      const int64_t slot = s.lane * a.mh + k;
+      a.h_top[slot] = e_top;
+      a.h_bot[slot] = e_bot;
+      a.h_off[slot] = s.cur;
+      a.h_len[slot] = e_len;
+    }
   }
   ++s.nh;
   if (e_len >= a.min_hitlen) s.sum += e_len;

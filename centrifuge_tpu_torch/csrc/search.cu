@@ -35,6 +35,17 @@
 //     the tiles of a warp reconverge every turn instead of waiting at an
 //     extension loop's exit for the warp's longest extension. Results go
 //     by lane index, so they do not depend on the order.
+// Pool mode (fm_search_pool, narrow rows): the copy back to the host is
+// the link's time, and most lanes fill fewer than half of their hit
+// slots, so each tile stages its lane's hits in shared memory and, when
+// the lane ends, reserves their records in one dense pool with one
+// atomicAdd (the pool counter sits beside the work counter, in the array
+// the wrapper zeroes) and writes them there; the host copies back a
+// budget of the pool and each lane's base and counts (classify/engine.py).
+// The stage's address is worked out at each use (Tile::stage), not kept
+// in the lane's state: so the kernel keeps to 64 registers a thread and 8
+// blocks a multiprocessor, where a kept pointer took it to 67 and 7 and
+// cost the 65,536-lane launches 1-2% (PERF.md §6).
 #include <cuda_runtime.h>
 
 #include "fm_common.cuh"
@@ -66,6 +77,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// pool: null (padded mode), or the pool buffer of int32 words: `budget`
+// records, base [L], tail [L], then the records from `budget` on (room
+// for L mh records in all). next: the zeroed work counter, and in pool
+// mode the pool counter after it.
 template <typename R>
 int launch(const void* blocks, const void* fchr, int64_t zoff,
            const void* ftab, const void* ftab12, const void* reads,
@@ -73,7 +88,8 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
            void* h_top, void* h_bot, void* h_off, void* h_len, void* nhits,
            void* sums, int64_t L, int32_t mh, int32_t min_hitlen,
            int32_t increment, int32_t first_hit_only, int32_t deep,
-           void* next, void* stream) {
+           void* next, void* stream, void* pool = nullptr,
+           int64_t budget = 0) {
   fm::FlatTables<R> t{};
   t.blocks = (const uint32_t*)blocks;
   t.fchr = (const R*)fchr;
@@ -95,12 +111,23 @@ int launch(const void* blocks, const void* fchr, int64_t zoff,
   a.min_hitlen = min_hitlen;
   a.increment = increment;
   a.first_hit_only = first_hit_only;
+  size_t smem = 0;
+  if (pool != nullptr) {
+    a.pool = (int32_t*)pool;
+    a.budget = budget;
+    a.base = a.pool + 3 * budget;
+    a.tail = a.base + L;
+    a.spill = a.tail + L;
+    a.pool_next = (int32_t*)next + 1;
+    // each tile's stage (Tile::stage), none in padded mode
+    smem = sizeof(int32_t) * fm::stage_words(mh) * (kThreads / kTile);
+  }
   if (L > 0) {
     int grid = 0;
     const cudaError_t e =
         fm::persistent_grid<search_kernel<R>>(kThreads, kTile, L, &grid);
     if (e != cudaSuccess) return (int)e;
-    search_kernel<R><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    search_kernel<R><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         t, a, L, (int32_t*)next);
   }
   return (int)cudaGetLastError();
@@ -142,6 +169,21 @@ int config(int64_t L, int32_t* out) {
 
 FM_SEARCH_ENTRY(fm_search_narrow, int32_t)
 FM_SEARCH_ENTRY(fm_search_wide, int64_t)
+
+// Pool mode, narrow rows only (launch's pool and budget).
+extern "C" int fm_search_pool(const void* blocks, const void* fchr,
+                              int64_t zoff, const void* ftab,
+                              const void* ftab12, const void* reads,
+                              int64_t row_bytes, const void* lengths,
+                              const void* start, void* pool, int64_t budget,
+                              int64_t L, int32_t mh, int32_t min_hitlen,
+                              int32_t increment, int32_t deep, void* next,
+                              void* stream) {
+  return launch<int32_t>(blocks, fchr, zoff, ftab, ftab12, reads, row_bytes,
+                         lengths, start, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, L, mh, min_hitlen, increment, 0,
+                         deep, next, stream, pool, budget);
+}
 
 extern "C" int fm_search_config(int32_t wide, int64_t L, int32_t* out) {
   return wide ? config<int64_t>(L, out) : config<int32_t>(L, out);

@@ -450,6 +450,65 @@ static bool reduce(Ctx* ctx, std::vector<HitCount>& hit_map) {
 
 // --------------------------------------------------------------- public API
 
+// A batch's per-lane hits unpacked into its pristine mate states:
+// lane_hits(li, ms, s) fills mate state ms's strand s from lane li.
+template <typename LaneHits>
+static Batch* begin_batch(Ctx* ctx, i64 n_lanes, const i32* lane_unit,
+                          const i32* lane_mate, const i32* lane_strand,
+                          i64 n_units, const i32* unit_n_mates,
+                          const i32* mate_len, const u8* unit_paired,
+                          const u32* unit_seeds, const LaneHits& lane_hits) {
+    Batch* b = new Batch();
+    b->ctx = ctx;
+    b->n_units = n_units;
+    b->pristine.resize(n_units * 2);
+    b->n_mates.assign(unit_n_mates, unit_n_mates + n_units);
+    b->paired.assign(unit_paired, unit_paired + n_units);
+    b->seeds.assign(unit_seeds, unit_seeds + n_units);
+    b->done_ext.assign(n_units, 0);
+    for (i64 u = 0; u < n_units; u++)
+        for (int m = 0; m < 2; m++)
+            b->pristine[u * 2 + m].rdlen = mate_len[u * 2 + m];
+    // lanes are disjoint (unit, mate, strand) slots, so the unpack
+    // threads over lane ranges safely
+    auto unpack = [&](i64 lo, i64 hi) {
+        for (i64 li = lo; li < hi; li++) {
+            i32 u = lane_unit[li], m = lane_mate[li];
+            lane_hits(li, b->pristine[(i64)u * 2 + m], lane_strand[li]);
+        }
+    };
+    int nt = (int)std::min<i64>(
+        std::max(1u, std::thread::hardware_concurrency()), 8);
+    if (n_lanes < 4096) nt = 1;
+    if (nt == 1) {
+        unpack(0, n_lanes);
+    } else {
+        std::vector<std::thread> ths;
+        i64 chunk = (n_lanes + nt - 1) / nt;
+        for (int t = 0; t < nt; t++) {
+            i64 lo = t * chunk, hi = std::min<i64>(n_lanes, lo + chunk);
+            if (lo >= hi) break;
+            ths.emplace_back(unpack, lo, hi);
+        }
+        for (auto& th : ths) th.join();
+    }
+    // finals need no seed copy: the fixpoint always assigns each used
+    // (unit, mate) slot from a fresh pristine clone before any reader
+    // (resolve_requests / finalize) runs; untouched slots (n_mates==0 or
+    // the absent mate) read as empty either way
+    b->finals.resize(n_units * 2);
+    return b;
+}
+
+static PartialHit partial_hit(i64 t, i64 bo, u32 off, u32 len) {
+    PartialHit h;
+    h.top = t < 0 ? OFF_MASK : (u64)t;
+    h.bot = bo < 0 ? OFF_MASK : (u64)bo;
+    h.bwoff = off;
+    h.length = len;
+    return h;
+}
+
 extern "C" {
 
 void* ctx_create(const u64* uid_tids, i64 n_uids,
@@ -481,6 +540,7 @@ void* ctx_create(const u64* uid_tids, i64 n_uids,
 
 void ctx_free(void* p) { delete (Ctx*)p; }
 
+// The padded search outputs: lane li's hits in slots [li * max_hits, ...).
 void* batch_begin(void* cp,
                   const i64* h_top, const i64* h_bot, const i32* h_off,
                   const i32* h_len, const i32* nhits, const i32* sums,
@@ -490,24 +550,10 @@ void* batch_begin(void* cp,
                   i64 n_units, const i32* unit_n_mates,
                   const i32* mate_len,            /* n_units*2 */
                   const u8* unit_paired, const u32* unit_seeds) {
-    Ctx* ctx = (Ctx*)cp;
-    Batch* b = new Batch();
-    b->ctx = ctx;
-    b->n_units = n_units;
-    b->pristine.resize(n_units * 2);
-    b->n_mates.assign(unit_n_mates, unit_n_mates + n_units);
-    b->paired.assign(unit_paired, unit_paired + n_units);
-    b->seeds.assign(unit_seeds, unit_seeds + n_units);
-    b->done_ext.assign(n_units, 0);
-    for (i64 u = 0; u < n_units; u++)
-        for (int m = 0; m < 2; m++)
-            b->pristine[u * 2 + m].rdlen = mate_len[u * 2 + m];
-    // lanes are disjoint (unit, mate, strand) slots, so the unpack
-    // threads over lane ranges safely
-    auto unpack = [&](i64 lo, i64 hi) {
-        for (i64 li = lo; li < hi; li++) {
-            i32 u = lane_unit[li], m = lane_mate[li], s = lane_strand[li];
-            MateStates& ms = b->pristine[(i64)u * 2 + m];
+    return begin_batch(
+        (Ctx*)cp, n_lanes, lane_unit, lane_mate, lane_strand, n_units,
+        unit_n_mates, mate_len, unit_paired, unit_seeds,
+        [&](i64 li, MateStates& ms, i32 s) {
             ms.sums[s] = sums[li];
             i64 k = nhits[li];
             if (k > max_hits) k = max_hits;
@@ -515,37 +561,40 @@ void* batch_begin(void* cp,
             hits.reserve(k);
             for (i64 j = 0; j < k; j++) {
                 i64 base = li * max_hits + j;
-                PartialHit h;
-                i64 t = h_top[base], bo = h_bot[base];
-                h.top = t < 0 ? OFF_MASK : (u64)t;
-                h.bot = bo < 0 ? OFF_MASK : (u64)bo;
-                h.bwoff = (u64)(u32)h_off[base];
-                h.length = (u64)(u32)h_len[base];
-                hits.push_back(h);
+                hits.push_back(partial_hit(h_top[base], h_bot[base],
+                                           (u32)h_off[base],
+                                           (u32)h_len[base]));
             }
-        }
-    };
-    int nt = (int)std::min<i64>(
-        std::max(1u, std::thread::hardware_concurrency()), 8);
-    if (n_lanes < 4096) nt = 1;
-    if (nt == 1) {
-        unpack(0, n_lanes);
-    } else {
-        std::vector<std::thread> ths;
-        i64 chunk = (n_lanes + nt - 1) / nt;
-        for (int t = 0; t < nt; t++) {
-            i64 lo = t * chunk, hi = std::min<i64>(n_lanes, lo + chunk);
-            if (lo >= hi) break;
-            ths.emplace_back(unpack, lo, hi);
-        }
-        for (auto& th : ths) th.join();
-    }
-    // finals need no seed copy: the fixpoint always assigns each used
-    // (unit, mate) slot from a fresh pristine clone before any reader
-    // (resolve_requests / finalize) runs; untouched slots (n_mates==0 or
-    // the absent mate) read as empty either way
-    b->finals.resize(n_units * 2);
-    return b;
+        });
+}
+
+// The pool form (classify/engine.py HitPool): lane li's min(nhits,
+// max_hits) hits are the records [base[li], ...) of {top, bot,
+// off << 16 | len}, and tail[li] is nhits << 16 | sums.
+void* batch_begin_pool(void* cp, const i32* records, const i32* base,
+                       const i32* tail, i64 n_lanes, i64 max_hits,
+                       const i32* lane_unit, const i32* lane_mate,
+                       const i32* lane_strand,
+                       i64 n_units, const i32* unit_n_mates,
+                       const i32* mate_len,       /* n_units*2 */
+                       const u8* unit_paired, const u32* unit_seeds) {
+    return begin_batch(
+        (Ctx*)cp, n_lanes, lane_unit, lane_mate, lane_strand, n_units,
+        unit_n_mates, mate_len, unit_paired, unit_seeds,
+        [&](i64 li, MateStates& ms, i32 s) {
+            const u32 t = (u32)tail[li];
+            ms.sums[s] = (i32)(t & 0xFFFF);
+            i64 k = t >> 16;
+            if (k > max_hits) k = max_hits;
+            auto& hits = ms.hits[s];
+            hits.reserve(k);
+            const i32* rec = records + 3 * (i64)base[li];
+            for (i64 j = 0; j < k; j++, rec += 3) {
+                const u32 ol = (u32)rec[2];
+                hits.push_back(partial_hit(rec[0], rec[1], ol >> 16,
+                                           ol & 0xFFFF));
+            }
+        });
 }
 
 void batch_free(void* bp) { delete (Batch*)bp; }

@@ -49,6 +49,10 @@ def load_native():
             C.c_void_p, i64p, i64p, i32p, i32p, i32p, i32p,
             C.c_int64, C.c_int64, i32p, i32p, i32p,
             C.c_int64, i32p, i32p, u8p, u32p]
+        lib.batch_begin_pool.restype = C.c_void_p
+        lib.batch_begin_pool.argtypes = [
+            C.c_void_p, i32p, i32p, i32p, C.c_int64, C.c_int64,
+            i32p, i32p, i32p, C.c_int64, i32p, i32p, u8p, u32p]
         lib.batch_free.argtypes = [C.c_void_p]
         lib.batch_extension_misses.restype = C.c_int64
         lib.batch_extension_misses.argtypes = [
@@ -153,7 +157,8 @@ class NativeAssigner:
                 round_sync=None, mate_len=None):
         """Run the full host assignment for one batch.
 
-        arrays: the 6 per-lane search outputs; lane_map: (unit, mate,
+        arrays: the per-lane search outputs, a HitPool or the 6 padded
+        arrays (classify/engine.py search_collect); lane_map: (unit, mate,
         strand) per lane; units: per unit list of (fw, rc) mate arrays;
         seeds: uint32 per unit. Returns (results_per_unit, secbest_per_unit)
         where each result is a tuple matching AlnResult fields.
@@ -178,14 +183,18 @@ class NativeAssigner:
         """mate_len: optional (n_units, 2) int32 of per-mate read lengths;
         callers that already know them (the pipeline computes qlens for
         the row formatter anyway) pass it to skip a ~15 ms/32k-lane
-        Python loop over the unit lists."""
+        Python loop over the unit lists. A HitPool goes to the native
+        unpack as it is; padded arrays as int64 rows."""
+        from ..classify.engine import HitPool
         lib = self.lib
-        h_top = np.ascontiguousarray(arrays[0], dtype=np.int64)
-        h_bot = np.ascontiguousarray(arrays[1], dtype=np.int64)
-        h_off, h_len, nhits, sums = [
-            np.ascontiguousarray(a, dtype=np.int32) for a in arrays[2:]]
-        L = h_top.shape[0]
-        mh = h_top.shape[1]
+        if isinstance(arrays, HitPool):
+            L = arrays.base.shape[0]
+        else:
+            h_top = np.ascontiguousarray(arrays[0], dtype=np.int64)
+            h_bot = np.ascontiguousarray(arrays[1], dtype=np.int64)
+            h_off, h_len, nhits, sums = [
+                np.ascontiguousarray(a, dtype=np.int32) for a in arrays[2:]]
+            L = h_top.shape[0]
         if isinstance(lane_map, np.ndarray):
             lm = np.ascontiguousarray(lane_map, dtype=np.int32)
             lane_unit = np.ascontiguousarray(lm[:, 0])
@@ -210,13 +219,18 @@ class NativeAssigner:
         paired = np.array([1 if p else 0 for p in paired_flags],
                           dtype=np.uint8)
         seeds = np.ascontiguousarray(seeds, dtype=np.uint32)
+        units_args = (lane_unit, lane_mate, lane_strand, n_units, n_mates,
+                      mate_len.reshape(-1), paired, seeds)
+        if isinstance(arrays, HitPool):
+            return lib.batch_begin_pool(
+                self.ctx, np.ascontiguousarray(arrays.records).reshape(-1),
+                np.ascontiguousarray(arrays.base),
+                np.ascontiguousarray(arrays.tail), L, arrays.mh,
+                *units_args)
         return lib.batch_begin(self.ctx, h_top.reshape(-1),
                                h_bot.reshape(-1),
                                h_off.reshape(-1), h_len.reshape(-1),
-                               nhits, sums, L, mh,
-                               lane_unit, lane_mate, lane_strand,
-                               n_units, n_mates, mate_len.reshape(-1),
-                               paired, seeds)
+                               nhits, sums, L, h_top.shape[1], *units_args)
 
     def _ext_and_resolve(self, bh, units, engine, resolver, metrics,
                          prefetch, round_sync):

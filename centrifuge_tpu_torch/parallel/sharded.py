@@ -696,6 +696,9 @@ class ShardedSearchEngine(BatchSearchEngine):
     def _deep(self, lmax: int) -> bool:
         return False
 
+    def _pool_budget(self, nlanes, lmax, presolve, mh) -> int:
+        return 0   # K6 writes the padded buffers
+
     def search_async(self, seqs, presolve: bool = False, khits: int = 5,
                      ihits: int = 200):
         return super().search_async(seqs)

@@ -117,6 +117,8 @@ class PerfMetrics:
     upload_bytes: int = 0
     staged_upload_bytes: int = 0   # of upload_bytes, from page-locked memory
     download_bytes: int = 0
+    pooled_download_bytes: int = 0  # of download_bytes, K1's hit pool
+    pool_spills: int = 0     # pool copies that needed a second copy
     collect_wait_secs: float = 0.0
     tail_wait_secs: float = 0.0    # main thread blocked on worker tails
     tail_run_secs: float = 0.0     # worker-thread tail occupancy

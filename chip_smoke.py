@@ -14,7 +14,9 @@ JSON line; any failure exits non-zero:
             and wide: rank (K0) on 65,536 random (row, char) pairs and
             K0's level-1 entry on the 2^20 depth-10 ranges,
             depth-12 ftab (K4), greedy search (K1) on every lane of the
-            synth reads, deep or not, min_hitlen 16 and 22; the SA
+            synth reads, deep or not, min_hitlen 16 and 22, and narrow
+            also in pool mode (budgets of 8 records a lane and of 1, a
+            spill; the pool expanded through HitPool); the SA
             resolve walk (K3) on 65,536 random rows and the edge rows, at
             the full step budget and at max_steps=1; the presolve (K5,
             then K3) on the synth lane sets, khits 5 and 16; K6's sharded
@@ -91,7 +93,9 @@ JSON line; any failure exits non-zero:
             the kernel alone (a CUDA graph of launches through its C
             entry) and the wrapper; K4's
             own launch and, apart, the whole depth-12 build, each with
-            its own bound; K1 and K5 on the first batch, K5's
+            its own bound; K1 and K5 on the first batch (K1 in the
+            main path's pool mode, checked and timed, its padded mode
+            timed beside it and checked as K5's input), K5's
             kernel alone and its wrapper beside it; K3 on that batch's
             presolve rows; K0's, K1's, K3's and K4's tile, grid and
             registers,
@@ -684,6 +688,20 @@ class Smoke:
             fail(f"{what}: kernel differs from its plain version by {err}")
         return err
 
+    def pool_equal(self, what: str, args, budget: int, want) -> int:
+        """K1 in pool mode on search_lanes' args, with `budget` records in
+        the first part of its buffer, against the padded outputs `want`
+        of the plain version: the pool through HitPool equals them slot
+        for slot (the card writes the lanes' records in the order lanes
+        end). Returns the records written."""
+        eng_mod, torch = self.m["engine"], self.torch
+        L, mh = args[1].shape[0], args[4]
+        buf = eng_mod.search_lanes(*args, pool_budget=budget)[0]
+        pool = eng_mod.HitPool.of_buffer(buf.cpu().numpy(), L, mh, budget)
+        self.equal(what, [torch.from_numpy(a) for a in pool.expand()],
+                   [w.cpu() for w in want])
+        return pool.records.shape[0]
+
     def traffic(self, fm, stats: dict):
         """(bytes, integer ops, popcounts) that the lookups recorded by a
         plain run need: each 32-byte sector of blocks, ftab, ftab12 and
@@ -1066,6 +1084,13 @@ class Smoke:
                         self.equal(f"search {name} wide={wide} deep={deep} "
                                    f"mhl={mhl}", got, want)
                         n_checked += len(seqs)
+                        # pool mode (narrow): the batch's budget of 8
+                        # records a lane, and 1 a lane (a spill)
+                        for per in (() if wide else (8, 1)):
+                            self.pool_equal(
+                                f"search pool {name} deep={deep} "
+                                f"mhl={mhl} budget={per}/lane", args,
+                                per * len(seqs), want)
             # first-hit-only mode (the extension searches) from offsets
             eng = eng_mod.BatchSearchEngine(fm, 22)
             seqs = sets["reads_n"]
@@ -1747,7 +1772,16 @@ class Smoke:
         want, plain_ms = self.time_host(
             lambda: eng_mod.search_plain(*args))
         err = self.equal("search (full batch)", got, want)
-        ms = self.time_cuda(lambda: eng_mod.search_lanes(*args), 5)
+        # the main path's pool mode, as the engine sizes it: the row's ms
+        L = len(seqs)
+        budget = eng._pool_budget(L, lmax, False, SEARCH_MH)
+        if not budget:
+            fail("the full batch's search does not take pool mode")
+        records = self.pool_equal("search pool (full batch)", args, budget,
+                                  want)
+        ms = self.time_cuda(
+            lambda: eng_mod.search_lanes(*args, pool_budget=budget), 5)
+        padded_ms = self.time_cuda(lambda: eng_mod.search_lanes(*args), 5)
         stats = {}
         eng_mod.search_plain(*args, stats=stats)
         nbytes, int_ops, popc = self.traffic(fm, stats)
@@ -1755,13 +1789,15 @@ class Smoke:
         longest = len(stats.get("bwt_rows", []))
         del stats
         rsz = fm.fchr.element_size()
-        L = len(seqs)
-        # reads, lengths and starts in; hit arrays, nhits and sums out
-        io = (reads.numel() + 8 * L + L * SEARCH_MH * (2 * rsz + 8)
-              + 8 * L + fm.fchr.numel() * rsz)
+        # reads, lengths and starts in; the pool's records (12 bytes
+        # each), each lane's base and tail out
+        io = (reads.numel() + 8 * L + 12 * records + 8 * L
+              + fm.fchr.numel() * rsz)
         self.rows["search"].update(
             launches=launches["search"], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=None, lanes=L,
+            padded_ms=padded_ms, pool_records=records,
+            pool_budget=budget, plain_ms=plain_ms, library_ms=None,
+            lanes=L,
             lockstep_steps=longest,
             **self.bound(nbytes + io, int_ops, popc),
             **self.launch_shape("search", fm.wide, L),

@@ -20,7 +20,7 @@ import torch
 
 from conftest import fixture_path
 from test_torch_twin import (build_twin, one_torch_thread,  # noqa: F401
-                             twin_search)
+                             twin_search, twin_search_pool)
 
 N_READS = 128      # per input file; 2 files x 2 strands = 512 lanes
 JAX_MAX_HITS = 32  # no lane of these reads emits more: no re-run shape
@@ -262,6 +262,7 @@ def test_stats_counters_are_exact_across_threads(indexes):
         "upload_bytes": n_adds * n_threads * (n_threads + 1) // 2,
         "staged_upload_bytes": n_adds * n_threads * (n_threads + 1) // 2,
         "download_bytes": n_adds * n_threads,
+        "pooled_download_bytes": 0, "pool_spills": 0,
         "ext_searches": n_adds * n_threads,
         "ext_lanes": 2 * n_adds * n_threads}
 
@@ -306,3 +307,160 @@ def test_packers_write_every_byte_in_place(indexes, lanes, monkeypatch,
     eng.search(seqs[:4])
     assert eng.stats["upload_bytes"] > 0
     assert eng.stats["staged_upload_bytes"] == 0
+
+
+# ---- K1's pool mode ----
+
+def _random_lanes(n, length, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 4, length).astype(np.int8) for _ in range(n)]
+
+
+def _pool_of_buffer(buf, L, mh, budget):
+    from centrifuge_tpu_torch.classify.engine import HitPool
+    return HitPool.of_buffer(np.asarray(buf), L, mh, budget)
+
+
+@pytest.mark.parametrize("case", ["genome", "random", "past_mh", "padding"])
+def test_twin_pool_mode_matches_padded(indexes, lanes, twin, case):
+    """The kernel's lane function in pool mode (records staged a lane,
+    reserved and copied when it ends) against padded mode, on the same
+    packed lanes, run by the one-thread group of 1 and 4 parts: the
+    expanded pool equals the padded outputs slot for slot, the buffer
+    equals pool_pack_plain's (the twin's lanes end in order), and the
+    records beyond the budget lie past the lanes' tails. Cases: the
+    synth reads (about 5 hits a lane); random lanes (about 13, so the
+    8-a-lane budget spills); the synth reads at mh 4 (lanes past mh
+    keep their last hit in the last slot); 100 reads among 412 padding
+    lanes of length 0."""
+    from centrifuge_tpu_torch.classify.engine import (BatchSearchEngine,
+                                                      pool_pack_plain,
+                                                      search_lanes)
+    _, fm = indexes[False, True]
+    eng = BatchSearchEngine(fm, 22)
+    seqs = {"genome": lanes, "random": _random_lanes(256, 150, 5),
+            "past_mh": lanes, "padding": lanes[:100]}[case]
+    mh = 4 if case == "past_mh" else 16
+    L = 512 if case == "padding" else len(seqs)
+    rseqp, lengths = eng.pack_transport(seqs, 160, L)
+    args = (fm, torch.from_numpy(rseqp), torch.from_numpy(lengths),
+            torch.zeros(L, dtype=torch.int32), mh, 22, eng.increment)
+    want = [t.numpy() for t in search_lanes(*args, False, True)]
+    budget = min(8, mh) * L
+    nh = np.minimum(want[4], mh)
+    assert (nh.sum() > budget) == (case == "random")
+    assert want[4].max() > mh or case in ("random", "padding")
+    plain = pool_pack_plain([torch.from_numpy(a) for a in want], budget)
+    assert torch.equal(search_lanes(*args, False, True,
+                                    pool_budget=budget)[0], plain)
+    for group in (1, 4):
+        buf = twin_search_pool(twin, *args, True, budget, group=group)
+        assert torch.equal(buf, plain)
+        got = _pool_of_buffer(buf, L, mh, budget).expand()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("budget", [0, 3, 8, 16])
+def test_hit_pool_expansion_round_trips(budget):
+    """Padded outputs (hits in a lane's first min(nhits, mh) slots,
+    unused slots (-1, -1, 0, 0), lanes past mh hits, empty lanes, offsets
+    and lengths up to 16 bits) through pool_pack_plain and back."""
+    from centrifuge_tpu_torch.classify.engine import pool_pack_plain
+    rng = np.random.default_rng(budget)
+    L, mh = 300, 16
+    nhits = rng.choice([0, 1, 5, 9, 16, 17, 40], L).astype(np.int32)
+    used = np.arange(mh)[None, :] < np.minimum(nhits, mh)[:, None]
+    top = np.where(used, rng.integers(-1, 1 << 30, (L, mh)), -1)
+    bot = np.where(used & (top >= 0), top + rng.integers(1, 9, (L, mh)), -1)
+    off = np.where(used, rng.integers(0, 1 << 16, (L, mh)), 0)
+    ln = np.where(used, rng.integers(0, 1 << 16, (L, mh)), 0)
+    sums = rng.integers(0, 1 << 16, L)
+    want = [a.astype(np.int32) for a in (top, bot, off, ln, nhits, sums)]
+    buf = pool_pack_plain([torch.from_numpy(a) for a in want], budget * L)
+    got = _pool_of_buffer(buf.numpy(), L, mh, budget * L)
+    np.testing.assert_array_equal(got.nhits, nhits)
+    for a, b in zip(got.expand(), want):
+        np.testing.assert_array_equal(a, b)
+    head = got.head(7).expand()
+    for a, b in zip(head, want):
+        np.testing.assert_array_equal(a, b[:7])
+
+
+@pytest.mark.parametrize("case", ["genome", "spill_past_mh"])
+def test_engine_pool_mode_matches_padded(indexes, lanes, case):
+    """The engine on the CPU in pool mode against the same engine with
+    the padded buffers: equal hits after expansion and the re-run of
+    lanes past 16 hits, pooled_download_bytes the bytes of the first copy
+    (104 a lane) plus a spill's, download_bytes those and the re-run's,
+    and pool_spills the spilled launches. Cases: 2,048 synth lanes (no
+    spill, one lane of 17 hits); 1,024 random lanes of 150 bases and 300
+    bases (about 13 and 26 hits: a spill and a re-run)."""
+    from centrifuge_tpu_torch.classify.engine import (BatchSearchEngine,
+                                                      HitPool, hit_arrays)
+    _, fm = indexes[False, True]
+    seqs = (lanes * 4 if case == "genome"
+            else _random_lanes(900, 150, 6) + _random_lanes(124, 300, 7))
+    got_eng, want_eng = BatchSearchEngine(fm, 22), BatchSearchEngine(fm, 22)
+    want_eng._pool_budget = lambda *a: 0
+    h = got_eng.search_async(seqs)
+    L = h.nlanes
+    assert h.pool == 8 * L
+    got, _ = got_eng.search_collect(h, len(seqs))
+    want = want_eng.search(seqs)
+    total = int(np.minimum(want[4], 16).sum())
+    spill = max(0, total - 8 * L) * 12
+    st = got_eng.stats
+    assert st["pooled_download_bytes"] == 104 * L + spill
+    assert st["pool_spills"] == (case != "genome")
+    # both engines re-ran the same lanes past 16 hits in padded mode
+    assert int(want[4].max()) > 16
+    assert st["download_bytes"] - st["pooled_download_bytes"] \
+        == want_eng.stats["download_bytes"] - 264 * L > 0
+    assert not isinstance(got, HitPool)
+    assert (spill > 0) == (case != "genome")
+    for a, b in zip(hit_arrays(got), want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pool_mode_path_choice(indexes, lanes):
+    """Pool mode only where the launch allows it: a narrow index, lanes
+    narrower than 2^16 - 10, no presolve, at any lane count; a
+    presolving dispatch, the first-hit searches, the overflow re-run,
+    K6's engine and graft_entry's 128 lanes keep the padded
+    buffers."""
+    from centrifuge_tpu_torch import graft_entry
+    from centrifuge_tpu_torch.classify.engine import (BatchSearchEngine,
+                                                      HitPool)
+    from centrifuge_tpu_torch.parallel.sharded import (MeshIndex,
+                                                       ShardedFMArrays,
+                                                       ShardedSearchEngine,
+                                                       make_mesh)
+    narrow = BatchSearchEngine(indexes[False, True][1], 22)
+    wide = BatchSearchEngine(indexes[True, True][1], 22)
+    assert narrow._pool_budget(1024, 160, False, 16) == 8192
+    assert narrow._pool_budget(256, 160, False, 16) == 2048
+    assert narrow._pool_budget(4096, 65504, False, 16) == 32768
+    assert narrow._pool_budget(4096, 160, False, 4) == 16384
+    for eng, args in [(narrow, (4096, 160, True, 16)),
+                      (narrow, (4096, 65526, False, 16)),
+                      (wide, (4096, 160, False, 16))]:
+        assert eng._pool_budget(*args) == 0
+    assert narrow.search_async(lanes * 2, presolve=True).pool == 0
+    small = narrow.search_async(lanes[:300])
+    assert small.pool == 8 * small.nlanes
+    assert narrow.search_async(lanes * 2).pool == 8192
+    offs = np.zeros(len(lanes) * 3, np.int32)
+    first = narrow.search_first_hits(lanes * 3, offs)
+    assert [a.shape for a in first[:4]] == [(len(lanes) * 3, 1)] * 4
+    assert narrow.stats["pooled_download_bytes"] == 0
+    idx = indexes[False, False][1]
+    mesh = ShardedSearchEngine(MeshIndex(
+        ShardedFMArrays.from_device_index(idx, 2),
+        make_mesh(1, 2, ["cpu"] * 2)))
+    assert mesh._pool_budget(4096, 160, False, 16) == 0
+    out = mesh.search_collect(mesh.search_async(lanes * 2), len(lanes))[0]
+    assert not isinstance(out, HitPool) and len(out) == 6
+    fn, args = graft_entry.entry("cpu")
+    assert len(fn(*args)) == 6

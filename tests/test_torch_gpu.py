@@ -617,6 +617,52 @@ def test_staged_uploads_match_plain(cuda, port_index):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("case", ["genome", "random", "spill"])
+def test_pool_mode_matches_padded_on_the_card(cuda, port_index, case):
+    """K1's pool mode on the card, through the engine on the synth index,
+    against the padded buffers on the card and against the CPU engine's
+    pool (the plain search packed by pool_pack_plain): equal hits after
+    expansion and the overflow re-run; pooled_download_bytes the bytes
+    copied (the first copy's 104 a lane and a spill's 12 a record past the
+    budget), download_bytes those and the re-run's; pool_spills the
+    spilled launches. Cases: 2,048 synth lanes; 1,024 random lanes of 150
+    and 300 bases (about 13 and 26 hits: a spill and a re-run); the synth
+    lanes with a budget of one record a lane (a forced spill)."""
+    from centrifuge_tpu_torch.classify.engine import (BatchSearchEngine,
+                                                      hit_arrays)
+    from centrifuge_tpu_torch.io.fastx import read_batch
+    from centrifuge_tpu_torch.ops.fm_torch import DeviceFMIndex
+    seqs = []
+    for r in read_batch([os.path.join(SYNTH, "reads_n.fq")], limit=512):
+        seqs += [r.seq, r.revcomp()]
+    seqs = seqs * 2
+    if case == "random":
+        g = np.random.default_rng(12)
+        seqs = [g.integers(0, 4, 150 if k < 900 else 300).astype(np.int8)
+                for k in range(1024)]
+    fms = {dev: DeviceFMIndex.build(port_index, device=dev, deep_ftab=True)
+           for dev in (cuda, "cpu")}
+    engs = {k: BatchSearchEngine(fms["cpu" if k == "cpu" else cuda], 22)
+            for k in ("card", "padded", "cpu")}
+    engs["padded"]._pool_budget = lambda *a: 0
+    if case == "spill":
+        for k in ("card", "cpu"):
+            engs[k]._pool_budget = lambda n, lmax, presolve, mh: n
+    outs = {k: e.search(seqs) for k, e in engs.items()}
+    L = 2048 if case != "random" else 1024
+    budget = L if case == "spill" else 8 * L
+    total = int(np.minimum(outs["padded"][4], 16).sum())
+    pooled = 4 * (3 * budget + 2 * L) + 12 * max(0, total - budget)
+    for k in ("card", "cpu"):
+        st = engs[k].stats
+        assert st["pooled_download_bytes"] == pooled
+        assert st["pool_spills"] == (case != "genome")
+        assert st["download_bytes"] - pooled \
+            == engs["padded"].stats["download_bytes"] - 264 * L
+        for a, b in zip(hit_arrays(outs[k]), outs["padded"]):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("dp,n_fm,wide", [(1, 2, False), (2, 2, True),
                                           (1, 4, False), (1, 4, True)])
 def test_sharded_kernels_match_plain(cuda, port_index, dp, n_fm, wide):

@@ -117,6 +117,36 @@ def test_unpaired_stream_has_no_pair_time_or_span(port_index):
     assert pipe.metrics.pair_prep_secs == pipe.metrics.pair_seed_secs == 0
 
 
+@pytest.mark.parametrize("tail", ["rows", "results"])
+@pytest.mark.parametrize("paired", [False, True], ids=["unpaired", "paired"])
+def test_pool_form_tail_matches_padded(port_index, paired, tail):
+    """The native tail's pool form of batch_begin (K1's hit pool, as a
+    batch of 1,024 reads or 1,000 pairs searches it) against its padded form
+    (the same pipeline with pool mode off): equal rows, from the row
+    formatter (`rows`) and from the Python one over the tail's results
+    (`results`); only the pool run counts pooled bytes, all of them."""
+    from centrifuge_tpu_torch.classify.gpu_pipeline import \
+        GPUClassificationPipeline
+    from centrifuge_tpu_torch.io.fastx import read_batch
+    out = []
+    for pool in (True, False):
+        pipe = GPUClassificationPipeline(port_index, device="cpu")
+        if not pool:
+            pipe.engine._pool_budget = lambda *a: 0
+        if tail == "results":
+            pipe._flat_eligible = lambda: False
+        if paired:
+            rows = pipe.classify_batch_paired(_synth_pairs()[:1024])
+        else:
+            rows = pipe.classify_batch_unpaired(read_batch(
+                [os.path.join(SYNTH, "reads.fq")], limit=1024))
+        m = pipe.metrics
+        assert m.download_bytes > 0 and m.pool_spills == 0
+        assert m.pooled_download_bytes == (m.download_bytes if pool else 0)
+        out.append(rows)
+    assert out[0] == out[1] and len(out[0]) >= 1000
+
+
 def test_met_rows_leave_out_the_pair_counters():
     """The --met surface (the reference's 134-name header, 30-value
     rows) is the same whatever the pair counters hold; the CLI's --met

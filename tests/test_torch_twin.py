@@ -69,6 +69,10 @@ def build_twin(out_dir: str):
             # lane's count of table reads, the rank, level1 and ftab12 0;
             # -1 for a group other than 1, 2, 4 or 8
             fn.restype = None if name == "presolve" else _I64
+    lib.twin_search_pool.argtypes = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P,
+                                     _P, _I64, _I64, _I32, _I32, _I32, _I32,
+                                     _I32]
+    lib.twin_search_pool.restype = _I64
     return lib
 
 
@@ -101,6 +105,25 @@ def twin_search(lib, fm, reads, lengths, start, mh, min_hitlen, increment,
     if reads_out is not None:
         reads_out.append(most)
     return outs
+
+
+def twin_search_pool(lib, fm, reads, lengths, start, mh, min_hitlen,
+                     increment, deep, budget, group=1):
+    """twin_search in pool mode (narrow index): the int32 pool buffer of
+    engine.pool_words(L, mh) words, as csrc/search.cu writes it; the
+    lanes run in order, so the records lie lane after lane. Words past
+    the last record keep 0."""
+    from centrifuge_tpu_torch.classify.engine import pool_words
+    L = reads.shape[0]
+    buf = torch.zeros(pool_words(L, mh), dtype=torch.int32)
+    deep = bool(deep and fm.ftab12_rows is not None)
+    most = lib.twin_search_pool(
+        ptr(fm.blocks), ptr(fm.fchr), fm.zoff, ptr(fm.ftab_rows),
+        ptr(fm.ftab12_rows) if deep else None, ptr(reads), reads.shape[1],
+        ptr(lengths), ptr(start), ptr(buf), budget, L, mh, min_hitlen,
+        increment, int(deep), group)
+    assert most >= 0
+    return buf
 
 
 def twin_resolve(lib, fm, rows, max_steps, walk=True, group=1):
